@@ -1,16 +1,18 @@
 """findkmer-torch CLI: the `count` subcommand of the port.
 
-    python -m findkmer_torch.cli count -i in.fa -k 8 -o out.tsv [--device cuda]
+    python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv [--device cuda]
 
 Same arguments and the same output bytes as `findkmer count` of the JAX
 package, whose JAX-free argument and output helpers it reuses
-(`findkmer_tpu.cli._add_common`, `_cfg_from_args`, `_open_out`;
-`findkmer_tpu.output.write_spectrum`).  `--device` picks the torch
-device; asking for cuda without one is an error, never a CPU run.
+(`findkmer_tpu.cli._add_common`, `_cfg_from_args` with its sparse
+autosize, `_open_out`; `findkmer_tpu.output.write_spectrum` and, for
+sparse tables, `write_spectrum_streaming` over the counter's chunked
+finalize).  Any k up to 31 counts.  `--device` picks the torch device;
+asking for cuda without one is an error, never a CPU run.
 
 Not yet ported, each refused with one error line and exit 2:
 `--per-input`, `--per-record`, `--spill`, `--devices` other than 1,
-`--profile`, and k that resolves to a sparse table.
+`--profile`, and the legacy finalize FINDKMER_ORDERED_FINALIZE=0.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ def _refuse_unported(args, cfg) -> None:
         (bool(args.spill), "--spill", f"{where} item 8"),
         (args.devices != 1, f"--devices {args.devices}", f"{where} item 13"),
         (args.profile is not None, "--profile", f"{where} item 12"),
-        (cfg.resolved_table_mode != "direct",
-         f"k={cfg.k} with a sparse table", f"{where} item 7"),
+        (cfg.resolved_table_mode != "direct"
+         and os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1",
+         "FINDKMER_ORDERED_FINALIZE=0 (the legacy heap-merge finalize)",
+         f"{where} item 7b"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -42,7 +46,22 @@ def _refuse_unported(args, cfg) -> None:
             )
 
 
-def cmd_count(args) -> int:
+def _timed_chunks(chunks, timers):
+    """Pass finalize chunks through, timing the wait for each chunk as
+    "finalize" and the caller's work on it (format, write) as "write"."""
+    it = iter(chunks)
+    while True:
+        with timers.phase("finalize"):
+            chunk = next(it, None)
+        if chunk is None:
+            return
+        with timers.phase("write"):
+            yield chunk
+
+
+def cmd_count(args, row_sort: str = "auto") -> int:
+    """`count`.  row_sort picks the sparse store's row sort for callers in
+    Python (`KmerCounter`: "auto", "kernel" or "plain"); it is no flag."""
     import torch
 
     from findkmer_tpu import output as output_mod
@@ -55,19 +74,34 @@ def cmd_count(args) -> int:
     cfg = _cfg_from_args(args)
     _refuse_unported(args, cfg)
     device = resolve_device(args.device)
+    encoder = pipeline.host_encoder(cfg.use_native_encode)
+    if encoder == "numpy" and cfg.use_native_encode:
+        print("findkmer-torch: warning: the C host encoder "
+              "(findkmer_tpu/io/native.py) could not be built with $CC or "
+              "cc; counting with its numpy fallback (same output, slower "
+              "host path)", file=sys.stderr)
     stats = pipeline.StreamStats()
     timers = PhaseTimers() if args.stats == "json" else None
 
     t0 = time.time()
     # multiple inputs: one combined spectrum (records concatenated)
-    spectrum = pipeline.count_file(args.input, cfg, device, stats=stats,
-                                   timers=timers)
-
+    counter, state = pipeline.run_count(args.input, cfg, device,
+                                        stats=stats, timers=timers,
+                                        row_sort=row_sort)
     f, close = _open_out(args.output)
     try:
-        if timers is None:
-            output_mod.write_spectrum(f, spectrum, cfg)
+        if counter.mode != "direct":
+            # sparse: format and write each finalize chunk while the next
+            # chunk's device-to-host copy is in flight
+            chunks = counter.finalize_chunks(state, timers=timers)
+            if timers is not None:
+                chunks = _timed_chunks(chunks, timers)
+            output_mod.write_spectrum_streaming(f, chunks, cfg)
+        elif timers is None:
+            output_mod.write_spectrum(f, counter.finalize(state), cfg)
         else:
+            with timers.phase("finalize"):
+                spectrum = counter.finalize(state)
             with timers.phase("write"):
                 output_mod.write_spectrum(f, spectrum, cfg)
     finally:
@@ -82,6 +116,7 @@ def cmd_count(args) -> int:
             torch.cuda.get_device_name(device)
             if device.type == "cuda" else "cpu"
         )
+        d["host_encoder"] = encoder
         if timers is not None:
             d["phases"] = timers.as_dict()
         print(json.dumps(d), file=sys.stderr)
@@ -118,13 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, row_sort: str = "auto") -> int:
     from findkmer_tpu.utils.shmalloc import ensure_shared_alloc
 
     ensure_shared_alloc()  # before any large host buffer is allocated
     args = build_parser().parse_args(argv)
     try:
-        return args.fn(args)
+        return args.fn(args, row_sort=row_sort)
     except (ValueError, FileNotFoundError, RuntimeError) as e:
         # one clean line for expected failures (NotImplementedError is a
         # RuntimeError); FINDKMER_TRACEBACK=1 shows the full stack.

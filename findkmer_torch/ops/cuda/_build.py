@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every `*.cu` file under `findkmer_torch/csrc/` is compiled by nvcc, in one
-command, into one shared library with a plain C interface:
+Every `*.cu` file under `findkmer_torch/csrc/` is compiled by nvcc into one
+shared library with a plain C interface, each source in its own nvcc
+process (all started together), then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/libfindkmer_torch_<key>.so \
-         findkmer_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o findkmer_torch/csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/torch_kernels/libfindkmer_torch_<key>.so <tmp>/*.o
 
 The sources include no PyTorch header, so the build takes seconds.  The
 library name carries a hash of the sources and flags: an edited source
@@ -33,7 +35,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 # the CUDA toolkit's default install prefix, tried after CUDA_HOME and PATH
 _DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
@@ -84,19 +86,38 @@ def build() -> Path:
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.{uuid.uuid4().hex}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sources() if s.suffix == ".cu"]
+    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.{uuid.uuid4().hex}"
+    tmp.mkdir()
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stderr}"
+        srcs = [s for s in sources() if s.suffix == ".cu"]
+        objs = [tmp / f"{s.stem}.o" for s in srcs]
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+            for cmd in (
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(srcs, objs)
             )
-        os.replace(tmp, out)
+        ]
+        errs = [p.communicate()[1] for _, p in procs]  # waits for each
+        failed = [(cmd, p.returncode, e)
+                  for (cmd, p), e in zip(procs, errs) if p.returncode]
+        if not failed:
+            lib = tmp / "lib.so"
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib),
+                   *map(str, objs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                failed = [(cmd, res.returncode, res.stderr)]
+            else:
+                os.replace(lib, out)
+        if failed:
+            cmd, rc, err = failed[0]
+            raise RuntimeError(
+                f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{err}"
+            )
     finally:
-        tmp.unlink(missing_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -109,6 +130,11 @@ def load() -> ctypes.CDLL:
         ptr, ptr, ctypes.c_int64, ptr, ctypes.c_int, ctypes.c_int, ptr,
     ]
     lib.fk_histogram.restype = ctypes.c_int
+    lib.fk_sort_rows.argtypes = [
+        ptr, ptr, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ptr,
+    ]
+    lib.fk_sort_rows.restype = ctypes.c_int
     lib.fk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fk_cuda_error_string.restype = ctypes.c_char_p
     return lib

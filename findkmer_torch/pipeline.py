@@ -553,27 +553,28 @@ def prefetch_to_device(
             batches.close()  # deterministic reader/file cleanup
 
 
-def count_file(
-    path,
+def run_count(
+    paths,
     cfg: Config,
     device: torch.device,
     *,
     stats: Optional[StreamStats] = None,
     timers=None,
+    row_sort: str = "auto",
 ):
-    """Single-host end-to-end count of one file, or of a list of files
-    counted as one input (records concatenated), on `device`.
+    """Count every batch of one file, or of a list of files counted as
+    one input (records concatenated), on `device` -> (counter, state),
+    not yet finalized.
 
-    Returns the finalized spectrum (dense np counts); formatting lives in
-    findkmer_tpu/output.py.  Pass a utils.prof.PhaseTimers to get a
-    host/dispatch/finalize wall-clock breakdown (device work is async;
-    "host_batches" is the wait for the next staged batch, "dispatch" is
-    step submission, "finalize" includes the final device drain).
-    """
+    Pass a utils.prof.PhaseTimers to get a host/dispatch breakdown
+    (device work is async: "host_batches" is the wait for the next
+    staged batch, "dispatch" is step submission; a sparse step also
+    runs its compactions)."""
     from findkmer_torch.models.counter import make_counter
 
-    paths = [path] if isinstance(path, (str, os.PathLike)) else list(path)
-    counter = make_counter(cfg, device)
+    paths = [paths] if isinstance(paths, (str, os.PathLike)) else list(paths)
+    host_encoder(cfg.use_native_encode)  # build the C encoder first
+    counter = make_counter(cfg, device, row_sort=row_sort)
     state = counter.init_state()
 
     def host_batches():
@@ -597,16 +598,68 @@ def count_file(
                     state = counter.step(state, rows)
     finally:
         it.close()  # stops the producer thread if a step raised
+    return counter, state
+
+
+def count_file(
+    path,
+    cfg: Config,
+    device: torch.device,
+    *,
+    stats: Optional[StreamStats] = None,
+    timers=None,
+    row_sort: str = "auto",
+):
+    """Single-host end-to-end count of one file, or of a list of files
+    counted as one input, on `device`.
+
+    Returns the finalized spectrum: dense np counts, or sparse (codes
+    uint64, counts int64); formatting lives in findkmer_tpu/output.py.
+    "finalize" in `timers` includes the final device drain."""
+    counter, state = run_count(path, cfg, device, stats=stats,
+                               timers=timers, row_sort=row_sort)
     if timers is None:
         return counter.finalize(state)
     with timers.phase("finalize"):
-        return counter.finalize(state)
+        return counter.finalize(state, timers=timers)
 
 
-def host_encoder() -> str:
-    """Which host encoder the batchers run: "native" (the C library of
-    findkmer_tpu.io.native, built at first use with $CC) or "numpy", its
-    fallback where that build fails.  Outputs are the same; rates differ."""
+def build_native_encoder() -> bool:
+    """Build the C library of findkmer_tpu.io.native where that module
+    looks for it: first as the module builds it (with $CC), then, if that
+    fails, once more with CC=cc for that one call (a $CC that cannot
+    link OpenMP fails the first build).  True when a build succeeded."""
     from findkmer_tpu.io import native as native_mod
 
+    if native_mod.build():
+        return True
+    old = os.environ.get("CC")
+    os.environ["CC"] = "cc"
+    try:
+        return native_mod.build()
+    finally:
+        if old is None:
+            del os.environ["CC"]
+        else:
+            os.environ["CC"] = old
+
+
+def host_encoder(use_native: bool = True) -> str:
+    """Which host encoder the batchers run: "native" (the C library of
+    findkmer_tpu.io.native) or "numpy", its fallback.  Outputs are the
+    same; rates differ about tenfold.
+
+    With use_native (Config.use_native_encode) and no library built yet,
+    this builds it first (`build_native_encoder`; FINDKMER_AUTOBUILD=0
+    turns building off, as it does for that module)."""
+    from findkmer_tpu.io import native as native_mod
+
+    if not use_native:
+        return "numpy"
+    if (
+        not native_mod._lib_path().exists()
+        and os.environ.get("FINDKMER_AUTOBUILD", "1") == "1"
+        and build_native_encoder()
+    ):
+        native_mod._load_attempted = False  # load what was just built
     return "native" if native_mod.available() else "numpy"

@@ -74,7 +74,8 @@ def test_cli_stdout_and_multiple_inputs(fixtures_dir, tmp_path, capsysbinary):
 
 @pytest.mark.parametrize("flag", [
     ["--per-input"], ["--per-record"], ["--spill", "x"], ["--devices", "2"],
-    ["--profile", "x"], ["-k", "12"], ["--table-mode", "sparse"],
+    ["--profile", "x"], ["-k", "21", "--spill", "x"],
+    ["--table-mode", "sparse", "--devices", "0"],
 ])
 def test_cli_unported_options_exit_2(fixtures_dir, tmp_path, capsys, flag):
     path = os.path.join(fixtures_dir, "tiny.fa")

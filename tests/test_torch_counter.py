@@ -150,8 +150,9 @@ def test_restore_state_checks_k_and_moves_tensors():
 
 
 @pytest.mark.parametrize("cfg, err", [
-    (Config(k=12), NotImplementedError),
-    (Config(k=6, table_mode="sparse"), NotImplementedError),
+    (Config(k=12, devices=2), NotImplementedError),
+    (Config(k=6, table_mode="sparse", spill_dir="unused"),
+     NotImplementedError),
     (Config(k=6, devices=2), NotImplementedError),
     (Config(k=6, spill_dir="unused"), ValueError),
     (Config(k=11, table_mode="direct", hist="pallas"), ValueError),

@@ -1,9 +1,11 @@
 """Guards of the PyTorch port: no jax, no silent CPU fallback, no build
 on the CPU path, a clear error without nvcc."""
 
+import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 
@@ -22,14 +24,13 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "findkmer_torch"
 
 
-def test_cli_count_never_imports_jax(fixtures_dir, tmp_path):
-    path = os.path.join(fixtures_dir, "multi.fa")
-    out = tmp_path / "o.tsv"
+def _cli_without_jax(path, out, extra, tmp_path):
+    """Run the port's CLI in a fresh interpreter; fail if jax loaded."""
     code = (
         "import sys\n"
         "from findkmer_torch.cli import main\n"
-        f"rc = main(['count', '-i', {path!r}, '-k', '4', '--device', 'cpu',"
-        f" '-o', {str(out)!r}])\n"
+        f"rc = main(['count', '-i', {path!r}, '--device', 'cpu',"
+        f" '-o', {str(out)!r}] + {extra!r})\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'jaxlib' not in sys.modules, 'jaxlib was imported'\n"
@@ -38,8 +39,24 @@ def test_cli_count_never_imports_jax(fixtures_dir, tmp_path):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(tmp_path), timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_cli_count_never_imports_jax(fixtures_dir, tmp_path):
+    path = os.path.join(fixtures_dir, "multi.fa")
+    out = tmp_path / "o.tsv"
+    _cli_without_jax(path, out, ["-k", "4"], tmp_path)
     want = spectrum_lines(count_fasta_file(path, 4), 4)
     assert out.read_text().splitlines() == want
+
+
+def test_cli_sparse_count_never_imports_jax(fixtures_dir, tmp_path):
+    path = os.path.join(fixtures_dir, "ecoli_frag.fa")
+    out = tmp_path / "o.tsv"
+    _cli_without_jax(path, out, ["-k", "21", "--canonical",
+                                 "--sparse-compact-entries", "20000"],
+                     tmp_path)
+    counts = count_fasta_file(path, 21, canonical=True)
+    assert out.read_text().splitlines() == spectrum_lines(counts, 21)
 
 
 def test_port_sources_do_not_import_jax():
@@ -117,3 +134,57 @@ def test_cpu_slice_never_builds(fixtures_dir, monkeypatch, hist):
     for kmer, n in count_fasta_file(path, 6).items():
         want[int(kmer.translate(str.maketrans("ACGT", "0123")), 4)] = n
     np.testing.assert_array_equal(got, want)
+
+
+def test_cpu_sparse_slice_never_builds(fixtures_dir, monkeypatch):
+    def refuse():
+        raise AssertionError("the CPU path called the kernel build")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    path = os.path.join(fixtures_dir, "multi.fa")
+    cfg = Config(k=21, chunk_len=256, batch_rows=4,
+                 sparse_compact_entries=1024)
+    for row_sort in ("auto", "kernel", "plain"):
+        codes, counts = pipeline.count_file(path, cfg, torch.device("cpu"),
+                                            row_sort=row_sort)
+        assert int(counts.sum()) == sum(count_fasta_file(path, 21).values())
+
+
+def test_native_encoder_build_retries_with_cc(tmp_path, monkeypatch):
+    """A $CC that cannot build the C host library (as a compiler without
+    OpenMP cannot) gets one retry with CC=cc; $CC is left as it was."""
+    if shutil.which("cc") is None:
+        pytest.skip("no cc on this machine")
+    from findkmer_tpu.io import native
+
+    lib = tmp_path / "libfindkmer_encode.so"
+    monkeypatch.setattr(native, "_lib_path", lambda: lib)
+    monkeypatch.setenv("CC", "false")  # a compiler that always fails
+    assert pipeline.build_native_encoder()
+    assert lib.exists()
+    assert os.environ["CC"] == "false"
+    lib.unlink()
+    monkeypatch.delenv("CC")
+    monkeypatch.setattr(native, "build", lambda quiet=True: False)
+    assert not pipeline.build_native_encoder()  # no compiler works
+    assert "CC" not in os.environ
+
+
+def test_host_encoder_warns_once_without_a_compiler(fixtures_dir, tmp_path,
+                                                    monkeypatch, capsys):
+    """Where no compiler works the CLI still counts (numpy host path) and
+    says so in one warning line; --stats json names the encoder."""
+    monkeypatch.setattr(pipeline, "host_encoder", lambda use_native=True:
+                        "numpy")
+    path = os.path.join(fixtures_dir, "tiny.fa")
+    out = tmp_path / "o.tsv"
+    rc = torch_cli.main(["count", "-i", path, "-k", "4", "-o", str(out),
+                         "--device", "cpu", "--stats", "json"])
+    assert rc == 0
+    err = capsys.readouterr().err.strip().splitlines()
+    warnings = [ln for ln in err if "warning" in ln]
+    assert len(warnings) == 1 and "numpy fallback" in warnings[0]
+    assert json.loads(err[-1])["host_encoder"] == "numpy"
+    assert out.read_text().splitlines() == spectrum_lines(
+        count_fasta_file(path, 4), 4)

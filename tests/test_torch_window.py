@@ -16,6 +16,9 @@ from findkmer_tpu.config import Config
 from findkmer_tpu.ops import window as jw
 from findkmer_torch.ops import window as tw
 
+SPARSE_KS = [11, 15, 16, 21, 23, 24, 28, 29, 31]
+JAX_SENT = 0xFFFFFFFF
+
 torch.set_num_threads(1)  # six test workers share the cores
 
 
@@ -79,10 +82,12 @@ def test_unpack_rows_vs_jax(R):
 
 
 def test_window_codes_rejects_bad_k():
-    rows = torch.zeros((1, 20), dtype=torch.uint8)
-    for k in (0, 16):
+    rows = torch.zeros((1, 40), dtype=torch.uint8)
+    for k in (0, 32):
         with pytest.raises(ValueError):
             tw.window_codes(rows, k)
+        with pytest.raises(ValueError):
+            tw.window_codes_packed(rows, rows, k)
 
 
 @pytest.mark.parametrize("k", [1, 5, 15])
@@ -94,3 +99,91 @@ def test_host_helpers_vs_jax(k):
         s = tw.code_to_str(code, k)
         assert s == jw.code_to_str(code, k)
         assert tw.str_to_code(s) == jw.str_to_code(s) == code
+
+
+def _jax_codes(hi, lo, k):
+    """JAX (hi, lo) code planes (hi None for k <= 15) as the port's
+    integer codes, the JAX sentinel mapped to the port's."""
+    lo = np.asarray(lo).astype(np.int64)
+    if hi is None:
+        return np.where(lo == JAX_SENT, tw.sentinel(tw.code_dtype(k)), lo)
+    hi = np.asarray(hi)
+    sent = hi == np.iinfo(hi.dtype).max
+    hi = hi.astype(np.int64)
+    return np.where(sent, tw.sentinel(torch.int64), (hi << 32) | lo)
+
+
+@pytest.mark.parametrize("canonical", [False, True], ids=["fwd", "canon"])
+@pytest.mark.parametrize("k", SPARSE_KS)
+def test_window_codes_wide_k_vs_jax(k, canonical):
+    """Raw rows: the port's one-integer codes against the JAX int32 codes
+    (k <= 15) or (hi, lo) pairs (window_codes_wide), window by window."""
+    cfg, batches = _batches(k, k, packed=False, n=900)
+    assert len(batches) > 1
+    for b in batches:
+        tc, tv = tw.window_codes(torch.from_numpy(b), k, canonical)
+        assert tc.dtype == tw.code_dtype(k)
+        if k <= 15:
+            jc, jv = jw.window_codes(jnp.asarray(b), k, canonical)
+            want = np.asarray(jc).astype(np.int64)
+        else:
+            jhi, jlo, jv = jw.window_codes_wide(jnp.asarray(b), k, canonical)
+            want = _jax_codes(jhi, jlo, k)
+        jv = np.asarray(jv)
+        np.testing.assert_array_equal(tv.numpy(), jv)
+        np.testing.assert_array_equal(tc.numpy()[jv], want[jv])
+        assert jv.any() and not jv.all()
+
+
+@pytest.mark.parametrize("canonical", [False, True], ids=["fwd", "canon"])
+@pytest.mark.parametrize("k", SPARSE_KS)
+def test_window_codes_packed_vs_jax(k, canonical):
+    """Packed rows: the same slots in the same order, the sorted valid
+    codes equal, and equal to the raw-row extraction's valid codes."""
+    cfg, batches = _batches(k + 100, k, packed=True, n=900)
+    assert len(batches) > 1
+    R = cfg.row_len
+    for packed, validbits in batches:
+        tp, tvb = torch.from_numpy(packed), torch.from_numpy(validbits)
+        got = tw.window_codes_packed(tp, tvb, k, canonical, R=R)
+        assert got.dtype == tw.code_dtype(k)
+        assert got.shape == (tw.packed_slots(*packed.shape, k, R),)
+        planes = jw.window_codes_packed(jnp.asarray(packed),
+                                        jnp.asarray(validbits), k,
+                                        canonical, R=R)
+        want = _jax_codes(None if k <= 15 else planes[0], planes[-1], k)
+        np.testing.assert_array_equal(got.numpy(), want)
+        sent = tw.sentinel(tw.code_dtype(k))
+        rc, rv = tw.window_codes(tw.unpack_rows(tp, tvb, R), k, canonical)
+        np.testing.assert_array_equal(
+            np.sort(got.numpy()[got.numpy() != sent]), np.sort(rc[rv].numpy())
+        )
+        # `out` fills a slice of a larger buffer in place
+        buf = torch.full((got.numel() + 5,), -1, dtype=got.dtype)
+        tw.window_codes_packed(tp, tvb, k, canonical, R=R,
+                               out=buf[2 : 2 + got.numel()])
+        assert torch.equal(buf[2 : 2 + got.numel()], got)
+        assert int(buf[0]) == int(buf[-1]) == -1
+
+
+def test_window_codes_packed_checks_out():
+    packed = torch.zeros((2, 8), dtype=torch.uint8)
+    n = tw.packed_slots(2, 8, 21, 30)
+    with pytest.raises(ValueError, match="out must be"):
+        tw.window_codes_packed(packed, packed[:, :4], 21, R=30,
+                               out=torch.empty(n, dtype=torch.int32))
+    with pytest.raises(ValueError, match="out must be"):
+        tw.window_codes_packed(packed, packed[:, :4], 21, R=30,
+                               out=torch.empty(n + 1, dtype=torch.int64))
+
+
+def test_poly_t_codes_stay_below_the_sentinel():
+    """A run of T's: every code of the run is 4^k - 1 (all ones, the JAX
+    lo = 0xFFFFFFFF case at k >= 16), real and distinct from the
+    sentinel."""
+    for k in (16, 21, 31):
+        rows = torch.full((1, 3 * k), 3, dtype=torch.uint8)
+        codes, valid = tw.window_codes(rows, k)
+        assert bool(valid.all())
+        assert bool((codes == 4 ** k - 1).all())
+        assert 4 ** k - 1 < tw.sentinel(tw.code_dtype(k))
