@@ -22,7 +22,20 @@ exit code is non-zero and the final ok-line is not printed.
      into a trash bin, no host sync: the `plain_ms` baseline, at 98%
      valid) and of the twin (`bincount(codes[valid])`, whose boolean mask
      syncs with the host)
-  4. K3 (row sort) vs `sort_rows_reference` (torch.sort + gather) on the
+  4. K2 (fused window histogram) vs `fused_window_histogram_reference` on
+     the card, exact, through both entries (uint8 rows, and the 2-bit
+     wire packed on the card as the host packer lays it out): k in
+     {1, 2, 4, 5, 6, 7, 8, 9, 10}, canonical and not; random rows with
+     ~2% invalid bytes (INVALID and 5..255), all invalid, poly-A (one hot
+     bin), and rows of exactly k bases; shapes (3, 1000 + k - 1),
+     (5, 1003) (a row length that is no multiple of 8) and the
+     production (1024, 65536 + k - 1).  Then the median CUDA-event ms at
+     the production shape, 98% of the windows valid (a genome batch's
+     share), k in {4, 6, 8, 10}, timed in turn:
+     K2 from the wire, K2 from rows, the two-stage path (unpack, plain
+     extraction, K1) and the plain version (unpack, extraction, the
+     sync-free `index_add_` scatter: `plain_ms`)
+  5. K3 (row sort) vs `sort_rows_reference` (torch.sort + gather) on the
      card, exact: keys equal, (key, count) pairs equal as multisets per
      row; cases random, all equal, all sentinel, sorted, reversed; shapes
      (3, 1000) and (64, 64) in every key/payload dtype, the production
@@ -32,24 +45,33 @@ exit code is non-zero and the final ok-line is not printed.
      median CUDA-event ms of kernel and plain version at the production
      shapes, timed in turn (the kernel sorts in place, so each of its runs
      restores the input first; that copy is timed alone and subtracted)
-  5. dense main path: a seeded 256 Mbase multi-record FASTA (N runs,
+  6. dense main path: a seeded 256 Mbase multi-record FASTA (N runs,
      lowercase, IUPAC codes, poly-A runs) counted by `findkmer_torch.cli
      count` at --batch-rows 1024 on cuda for k=8, k=8 --canonical and
-     k=10; K1 must launch once per batch, and each output must equal the
-     `--hist scatter` run byte for byte; beside it the rate of the host
-     batcher alone and of the device step alone (batch staged on the card,
-     with the share of its windows that are valid)
-  6. sparse main path: the same genome at k=21 --canonical and k=15
+     k=10, each by three routes: the default step (K2, which must launch
+     once per batch, and K1 never), the two-stage step (dense_kernel=
+     "two_stage": K1 once per batch, K2 never) and `--hist scatter`, each
+     route twice in mirrored order (a b c c b a); all six outputs must be
+     equal byte for byte.  Beside it the rate of
+     the host batcher alone and the ms of the device step alone on a
+     batch staged on the card, for each of the three (with the share of
+     its windows that are valid)
+  7. sparse main path: the same genome at k=21 --canonical and k=15
      (row sort K3), each also run with the plain row sort; every row sort
      of every compaction must be a K3 launch, and the two outputs must
      hash equal (streamed sha256; each file is deleted once hashed).
      Prints bases/s and the CLI's phases, with the row sorts' device ms
-  7. sparse device step: a staged k=21 --canonical batch: ingest ms,
+  8. sparse device step: a staged k=21 --canonical batch: ingest ms,
      four compactions of the repeated batch at sparse_compact_entries =
      2^26 (raw, count-carrying, and one that squeezes first), each with
      its row sorts' device ms, then finalize ms
-  8. oracle: tests/data fixtures at k=4, k=8, k=4 -z, k=11, k=21
+  9. oracle: tests/data fixtures at k=4, k=8, k=4 -z, k=11, k=21
      --canonical and k=31, byte-identical to oracle/scalar.py
+ 10. entry points: `selftest --device cuda` (3/3 cases bit-exact);
+     `count --per-record` of a seeded FASTA of 2000 records of 100-5000
+     bases with N runs at k=8 and k=21 --canonical, equal byte for byte to
+     the same run with --device cpu; `count --per-input` over three
+     inputs, each file equal to a single `count` of that input
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -95,6 +117,12 @@ from findkmer_torch.ops.cuda.rowsort_kernel import (
     sort_rows_cuda,
     sort_rows_reference,
 )
+from findkmer_torch.ops.cuda.window_histogram_kernel import (
+    fused_window_histogram_cuda,
+    fused_window_histogram_packed_cuda,
+    fused_window_histogram_packed_reference,
+    fused_window_histogram_reference,
+)
 from oracle.scalar import count_fasta_file, spectrum_lines
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -106,6 +134,14 @@ TIMED_KS = (4, 6, 8, 10)
 # codes, record separators; the device_step line reports the real one)
 TIMED_VALID = (0.8, 0.98)
 STEP_KS = (8, 10)
+K2_KS = (1, 2, 4, 5, 6, 7, 8, 9, 10)
+K2_CASES = ("random", "invalid", "poly_a")
+# the dense step's three routes: (name, --hist, dense_kernel)
+DENSE_ROUTES = (("fused", "auto", "fused"),
+                ("two_stage", "auto", "two_stage"),
+                ("scatter", "scatter", "fused"))
+PER_RECORD_RUNS = ((8, []), (21, ["--canonical"]))
+PER_RECORD_GEOM = ["--chunk-len", "8192"]  # a row holds any one record
 # the row sorts of a 256 Mbase sparse count at 1024 x 65536 batches: the
 # raw compaction (k=21, k=15) and the count-carrying one (k=21)
 SORT_SHAPES = (
@@ -268,6 +304,127 @@ def phase_timing(seed: int) -> dict:
     return timing
 
 
+def _k2_rows(case: str, shape, gen: torch.Generator,
+             invalid: float = 0.02) -> torch.Tensor:
+    """(B, R) uint8 rows on the card: random bases with a share `invalid`
+    of invalid bytes (INVALID and any byte up to 255), all invalid, or
+    poly-A."""
+    dev = torch.device("cuda")
+    u8 = torch.uint8
+    if case == "random":
+        rows = torch.randint(0, 4, shape, generator=gen, device=dev, dtype=u8)
+        junk = torch.randint(4, 256, shape, generator=gen, device=dev,
+                             dtype=u8)
+        bad = torch.rand(shape, generator=gen, device=dev) < invalid
+        return torch.where(bad, junk, rows)
+    if case == "invalid":
+        return torch.randint(4, 256, shape, generator=gen, device=dev,
+                             dtype=u8)
+    if case == "poly_a":
+        return torch.zeros(shape, dtype=u8, device=dev)
+    raise ValueError(case)
+
+
+def _pack_wire(rows: torch.Tensor) -> tuple:
+    """(B, R) uint8 rows -> the 2-bit wire as the host packer lays it out
+    (`_numpy_pack_rows`): packed (B, R8/4), 4 bases a byte, and
+    validbits (B, R8/8), MSB first; slots past R are invalid."""
+    B, R = rows.shape
+    R8 = (R + 7) // 8 * 8
+    padded = torch.full((B, R8), window_ops.INVALID, dtype=torch.uint8,
+                        device=rows.device)
+    padded[:, :R] = rows
+    valid = (padded < 4).to(torch.uint8)
+    safe = padded * valid
+    packed = ((safe[:, 0::4] << 6) | (safe[:, 1::4] << 4)
+              | (safe[:, 2::4] << 2) | safe[:, 3::4])
+    bits = valid[:, 0::8] << 7
+    for j in range(1, 8):
+        bits |= valid[:, j::8] << (7 - j)
+    return packed.contiguous(), bits.contiguous()
+
+
+def phase_window_kernel(seed: int) -> int:
+    """K2 vs its plain version, exact, through both entries, at every k,
+    canonical and not, case and shape -> max abs err."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    max_err = 0
+    n_cases = 0
+    for k in K2_KS:
+        shapes = [(3, 1000 + k - 1), (5, 1003),
+                  (PROD_SHAPE[0], PROD_SHAPE[1] + k - 1)]
+        cases = [(c, sh) for sh in shapes for c in K2_CASES]
+        cases.append(("exact_k", (3, k)))
+        for case, shape in cases:
+            rows = _k2_rows("random" if case == "exact_k" else case, shape,
+                            gen)
+            if case == "exact_k":
+                rows &= 3  # all valid: one window a row
+            packed, validbits = _pack_wire(rows)
+            R = shape[1]
+            for canonical in (False, True):
+                want = fused_window_histogram_reference(rows, k, canonical)
+                what = f"k={k} canonical={canonical} shape={shape} {case}"
+                _check_equal(fused_window_histogram_packed_reference(
+                    packed, validbits, k, canonical, R), want,
+                    f"wire packing: {what}")
+                max_err = max(max_err, _check_equal(
+                    fused_window_histogram_cuda(rows, k, canonical), want,
+                    f"K2 (rows) != plain at {what}"))
+                max_err = max(max_err, _check_equal(
+                    fused_window_histogram_packed_cuda(
+                        packed, validbits, k, canonical, R), want,
+                    f"K2 (wire) != plain at {what}"))
+                n_cases += 2
+            del rows, packed, validbits
+        torch.cuda.empty_cache()
+    say("window_kernel_vs_plain", cases=n_cases, max_abs_err=max_err)
+    return max_err
+
+
+def phase_window_timing(seed: int) -> dict:
+    """Median CUDA-event ms at the production shape for k in TIMED_KS,
+    with invalid bytes spread so that a genome batch's share of the
+    windows (TIMED_VALID[-1]) is valid, timed in turn: K2 from the wire
+    ("kernel") and from rows, the two-stage step (unpack, plain
+    extraction, K1) and the plain version (unpack, extraction,
+    `index_add_` scatter, whose trash bin takes every invalid window: no
+    host sync)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    timing = {}
+    shares = {}
+    for k in TIMED_KS:
+        shape = (PROD_SHAPE[0], PROD_SHAPE[1] + k - 1)
+        R = shape[1]
+        rows = _k2_rows("random", shape, gen,
+                        invalid=1 - TIMED_VALID[-1] ** (1 / k))
+        packed, validbits = _pack_wire(rows)
+        valid_share = float(window_ops.window_codes(rows, k)[1]
+                            .float().mean())
+
+        def extract():
+            return window_ops.window_codes(
+                window_ops.unpack_rows(packed, validbits, R), k)
+
+        fns = {
+            "plain": lambda: hist_ops.histogram(*extract(), 4 ** k),
+            "kernel": lambda: fused_window_histogram_packed_cuda(
+                packed, validbits, k, False, R),
+            "kernel_rows": lambda: fused_window_histogram_cuda(rows, k),
+            "two_stage": lambda: histogram_cuda(*extract(), k),
+        }
+        want = fused_window_histogram_reference(rows, k)
+        for name, fn in fns.items():
+            _check_equal(fn(), want, f"{name} != plain version at k={k}")
+        timing[f"k{k}"] = _time_alternating(fns)
+        shares[f"k{k}"] = valid_share
+        del rows, packed, validbits
+        torch.cuda.empty_cache()
+    say("window_kernel_timing", shape=[PROD_SHAPE[0], "65536+k-1"],
+        valid_share=shares, timing=timing)
+    return timing
+
+
 def _sort_input(shape, kd, case, gen: torch.Generator) -> torch.Tensor:
     dev = torch.device("cuda")
     G, C = shape
@@ -398,6 +555,13 @@ class _RowSortTap:
         return ms
 
 
+def _read_and_delete(path: str) -> bytes:
+    with open(path, "rb") as f:
+        data = f.read()
+    os.unlink(path)
+    return data
+
+
 def _sha256_and_delete(path: str) -> tuple:
     h = hashlib.sha256()
     with open(path, "rb") as f:
@@ -419,6 +583,7 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
         tap.timed = True
         sort_rows_cuda.launches = 0
         histogram_cuda.launches = 0
+        fused_window_histogram_cuda.launches = 0
         for k, extra in SPARSE_RUNS:
             digests = {}
             for row_sort in ("auto", "plain"):
@@ -461,8 +626,8 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 )
             say("sparse_main_path_identical", k=k, args=extra,
                 sha256=digests["auto"])
-        if histogram_cuda.launches:
-            raise AssertionError("the sparse path launched the histogram")
+        if histogram_cuda.launches or fused_window_histogram_cuda.launches:
+            raise AssertionError("the sparse path launched a histogram")
     return sort_rows_cuda.launches, runs
 
 
@@ -556,7 +721,7 @@ def write_genome(path: str, seed: int, total: int = GENOME_BASES) -> None:
 def phase_layers(fasta: str) -> None:
     """Per-layer rates at the production geometry: the host batcher alone
     (no device), and the device step alone on a batch staged on the card,
-    for the kernel and for --hist scatter."""
+    for each route of DENSE_ROUTES."""
     cfg = Config(k=8, batch_rows=PROD_SHAPE[0], chunk_len=PROD_SHAPE[1])
     t0 = time.perf_counter()
     n_batches = 0
@@ -567,9 +732,10 @@ def phase_layers(fasta: str) -> None:
         bases_per_s=GENOME_BASES / dt, host_encoder=pipeline.host_encoder())
     steps = 8
     for k in STEP_KS:
-        for hist in ("pallas", "scatter"):
+        for route, hist, dense_kernel in DENSE_ROUTES:
             kcfg = cfg.replace(k=k, hist=hist)
-            counter = KmerCounter(kcfg, torch.device("cuda"))
+            counter = KmerCounter(kcfg, torch.device("cuda"),
+                                  dense_kernel=dense_kernel)
             batches = pipeline.batches_from_file(fasta, kcfg)
             batch = counter.put_batch(next(batches))
             batches.close()
@@ -586,7 +752,7 @@ def phase_layers(fasta: str) -> None:
                 state = counter.step(state, batch)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            say("device_step", k=k, hist=hist, steps=steps,
+            say("device_step", k=k, route=route, steps=steps,
                 valid_share=valid_share,
                 ms_per_step=1e3 * dt / steps,
                 bases_per_s=steps * cfg.batch_rows * cfg.chunk_len / dt)
@@ -647,12 +813,13 @@ def phase_profile(fasta: str) -> None:
                  for n, ms in top])
 
 
-def run_cli(args, row_sort: str = "auto") -> tuple:
+def run_cli(args, row_sort: str = "auto",
+            dense_kernel: str = "fused") -> tuple:
     """findkmer_torch.cli.main(args) in this process -> (stats, wall_s)."""
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        rc = cli.main(args, row_sort=row_sort)
+        rc = cli.main(args, row_sort=row_sort, dense_kernel=dense_kernel)
     wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"cli {args} exited {rc}: {err.getvalue()}")
@@ -676,44 +843,52 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
         phase_profile(fasta)
     runs = []
     histogram_cuda.launches = 0
+    fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = 0
     for k, extra in ((8, []), (8, ["--canonical"]), (10, [])):
-        outs = {}
-        for hist in ("auto", "scatter"):
-            out = os.path.join(tmp, f"k{k}{''.join(extra)}_{hist}.tsv")
-            before = histogram_cuda.launches
+        want_bytes = None
+        # each route twice, in mirrored order (a b c c b a), so that a
+        # drift over the calls does not favour one route's rate
+        order = list(DENSE_ROUTES) + list(reversed(DENSE_ROUTES))
+        for i, (route, hist, dense_kernel) in enumerate(order):
+            out = os.path.join(tmp, f"k{k}{''.join(extra)}_{route}.tsv")
+            k1 = histogram_cuda.launches
+            k2 = fused_window_histogram_cuda.launches
             stats, wall = run_cli(
                 ["count", "-i", fasta, "-k", str(k), "--batch-rows", "1024",
                  "--chunk-len", "65536", "--device", "cuda", "--hist", hist,
-                 "-o", out, "--stats", "json"] + extra
+                 "-o", out, "--stats", "json"] + extra,
+                dense_kernel=dense_kernel,
             )
-            launched = histogram_cuda.launches - before
-            want = stats["batches"] if hist == "auto" else 0
-            if launched != want:
+            k1 = histogram_cuda.launches - k1
+            k2 = fused_window_histogram_cuda.launches - k2
+            n = stats["batches"]
+            want = {"fused": (0, n), "two_stage": (n, 0), "scatter": (0, 0)}
+            if (k1, k2) != want[route]:
                 raise AssertionError(
-                    f"k={k} {extra} hist={hist}: kernel launched "
-                    f"{launched} times for {stats['batches']} batches"
+                    f"k={k} {extra} {route}: K1 launched {k1} and K2 {k2} "
+                    f"times for {n} batches"
                 )
-            outs[hist] = out
-            run = {"k": k, "args": extra, "hist": hist,
-                   "batches": stats["batches"], "launches": launched,
+            got = _read_and_delete(out)
+            if want_bytes is None:
+                want_bytes = got  # the first run is K2's
+            elif got != want_bytes:
+                raise AssertionError(
+                    f"k={k} {extra}: the {route} output differs from K2's")
+            run = {"k": k, "args": extra, "route": route, "hist": hist,
+                   "pass": i // len(DENSE_ROUTES),
+                   "batches": n, "k1_launches": k1, "k2_launches": k2,
                    "bases": stats["bases"], "cli_wall_s": stats["wall_s"],
                    "bases_per_s": stats["bases_per_s"], "wall_s": wall,
                    "device": stats["device"]}
             say("main_path", **run)
             runs.append(run)
-        with open(outs["auto"], "rb") as a, open(outs["scatter"], "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(
-                    f"k={k} {extra}: kernel output differs from --hist "
-                    "scatter output"
-                )
-        say("main_path_identical", k=k, args=extra,
-            bytes=os.path.getsize(outs["auto"]))
-    launches = histogram_cuda.launches
+        say("main_path_identical", k=k, args=extra, runs=len(order),
+            bytes=len(want_bytes))
     if sort_rows_cuda.launches:
         raise AssertionError("the dense path launched the row sort")
-    return launches, runs
+    return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
+            runs)
 
 
 def phase_oracle(tmp: str) -> None:
@@ -739,6 +914,88 @@ def phase_oracle(tmp: str) -> None:
         runs=[[k] + extra for k, extra in ORACLE_RUNS])
 
 
+def write_records(path: str, seed: int, n: int = 2000) -> int:
+    """A seeded FASTA of n records of 100-5000 bases: uniform ACGT with
+    ~5% lowercase, an N run of 1-300 bases in about a third of them.
+    -> bases written."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    total = 0
+    with open(path, "wb") as f:
+        for r in range(n):
+            ln = int(rng.integers(100, 5001))
+            seq = acgt[rng.integers(0, 4, ln, dtype=np.uint8)]
+            seq[rng.integers(0, 20, ln, dtype=np.uint8) == 0] |= 0x20
+            if rng.random() < 0.33:
+                run = int(rng.integers(1, 301))
+                s = int(rng.integers(0, ln))
+                seq[s : s + run] = ord("N")
+            lines = [seq[i : i + 80].tobytes() for i in range(0, ln, 80)]
+            f.write(f">rec{r} seeded\n".encode() + b"\n".join(lines) + b"\n")
+            total += ln
+    return total
+
+
+def phase_entry_points(tmp: str, seed: int) -> dict:
+    """selftest on the card; count --per-record on the card against the
+    CPU; count --per-input against single counts.  -> K2 launches of the
+    runs on the card."""
+    fused_window_histogram_cuda.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["selftest", "--device", "cuda", "--seed", str(seed)])
+    if rc != 0 or "selftest OK (3/3 cases bit-exact)" not in out.getvalue():
+        raise AssertionError(
+            f"selftest exited {rc}: {out.getvalue()} {err.getvalue()}")
+    say("selftest", seconds=time.perf_counter() - t0,
+        lines=out.getvalue().strip().splitlines())
+
+    records = os.path.join(tmp, "records.fa")
+    bases = write_records(records, seed + 7)
+    for k, extra in PER_RECORD_RUNS:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"per_record_{dev}.txt")
+            k2 = fused_window_histogram_cuda.launches
+            stats, wall = run_cli(
+                ["count", "-i", records, "-k", str(k), "--per-record",
+                 "--device", dev, "-o", path, "--stats", "json"]
+                + PER_RECORD_GEOM + extra)
+            got[dev] = _read_and_delete(path)
+            say("per_record", k=k, args=extra, device=dev,
+                records=stats["records"], bases=bases, wall_s=wall,
+                records_per_s=stats["records"] / wall,
+                k2_launches=fused_window_histogram_cuda.launches - k2,
+                out_bytes=len(got[dev]))
+        if got["cuda"] != got["cpu"] or got["cuda"].count(b">") != 2000:
+            raise AssertionError(
+                f"--per-record k={k} {extra}: the card's output differs "
+                "from the CPU's")
+
+    inputs = [records]
+    for i in (1, 2):
+        inputs.append(os.path.join(tmp, f"input{i}.fa"))
+        write_genome(inputs[-1], seed + 7 + i, total=8 << 20)
+    for k, extra in PER_RECORD_RUNS:
+        d = os.path.join(tmp, f"per_input_k{k}")
+        run_cli(["count", "-i", *inputs, "-k", str(k), "--per-input", "-o",
+                 d, "--device", "cuda"] + extra)
+        for p in inputs:
+            one = os.path.join(tmp, "one.tsv")
+            run_cli(["count", "-i", p, "-k", str(k), "-o", one, "--device",
+                     "cuda"] + extra)
+            stem = os.path.splitext(os.path.basename(p))[0]
+            if _read_and_delete(os.path.join(d, f"{stem}.tsv")) != \
+                    _read_and_delete(one):
+                raise AssertionError(
+                    f"--per-input k={k} {extra}: {stem}.tsv differs from a "
+                    "single count of its input")
+        say("per_input", k=k, args=extra, inputs=len(inputs),
+            identical=True)
+    return fused_window_histogram_cuda.launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -751,15 +1008,21 @@ def main() -> int:
     phase_build()
     max_err = phase_kernel(args.seed)
     timing = phase_timing(args.seed)
+    k2_err = phase_window_kernel(args.seed)
+    k2_timing = phase_window_timing(args.seed)
     sort_err = phase_rowsort_vs_plain(args.seed)
     sort_timing = phase_rowsort_timing(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fasta = phase_genome(tmp, args.seed)
-        launches, runs = phase_main_path(fasta, tmp, args.profile)
+        launches, k2_launches, runs = phase_main_path(fasta, tmp,
+                                                      args.profile)
         sort_launches, sparse_runs = phase_sparse_main_path(tmp, fasta)
         phase_sparse_device_step(fasta)
         phase_oracle(tmp)
+        os.unlink(fasta)
+        phase_entry_points(tmp, args.seed)
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
+    w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
     print(json.dumps({"kernels": [{
         "name": "histogram_cuda",
@@ -776,6 +1039,25 @@ def main() -> int:
         "valid_share": TIMED_VALID[-1],
         "by_case": {case: {name: t["ms"] for name, t in v.items()}
                     for case, v in timing.items()},
+        "card": smi,
+    }, {
+        "name": "fused_window_histogram_cuda",
+        "route": "cuda",
+        "source": "findkmer_torch/csrc/window_histogram.cu",
+        "replaces": "findkmer_tpu/ops/pallas/histogram_kernel.py:254",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": w8["kernel"]["ms"],
+        "plain_ms": w8["plain"]["ms"],
+        "plain": "unpack, plain-torch window extraction, index_add_ "
+                 "scatter histogram, no host sync",
+        "shape": [PROD_SHAPE[0], PROD_SHAPE[1] + 7],
+        "k": 8,
+        "by_k": {k: {name: t["ms"] for name, t in v.items()}
+                 for k, v in k2_timing.items()},
+        "dense_bases_per_s": {
+            f"k{r['k']}{''.join(r['args'])}_{r['route']}_{r['pass']}":
+            r["bases_per_s"] for r in runs},
         "card": smi,
     }, {
         "name": "sort_rows_cuda",

@@ -5,15 +5,20 @@ held against.  The port imports `torch` and never `jax`; the JAX-free
 host layer of `findkmer_tpu` (config, io, output, the native C encoder)
 is reused by import.
 
-What runs today is `count` on one device, for any k up to 31: a dense
-4^k table for k <= 10 (k <= 15 with `--table-mode direct`), the sparse
-sorted-run store above:
+What runs today on one device, for any k up to 31 (a dense 4^k table for
+k <= 10, k <= 15 with `--table-mode direct`; the sparse sorted-run store
+above): `count` (one combined spectrum, `--per-input`, `--per-record`),
+`selftest`, and the library API `count` / `count_per_record` /
+`count_text` (`api.py`):
 
     python -m findkmer_torch.cli count -i in.fa -k 21 --canonical -o out.tsv
+    python -m findkmer_torch.cli selftest --device cuda
 
 Its device kernels are hand-written CUDA for Hopper, built with nvcc at
 first use: the window-code histogram K1 (`csrc/histogram.cu`, wrapped by
-`ops/cuda/histogram_kernel.py`) and the store's row sort K3
+`ops/cuda/histogram_kernel.py`), the fused window histogram K2 of the
+dense step (`csrc/window_histogram.cu`,
+`ops/cuda/window_histogram_kernel.py`) and the store's row sort K3
 (`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`).
 
 Importing the package stays cheap: no torch import here.
@@ -21,4 +26,14 @@ Importing the package stays cheap: no torch import here.
 
 from findkmer_tpu.config import Config
 
-__all__ = ["Config"]
+
+def __getattr__(name):
+    # lazy: the API imports torch
+    if name in ("count", "count_per_record", "count_text", "Spectrum"):
+        from findkmer_torch import api
+
+        return getattr(api, name)
+    raise AttributeError(name)
+
+
+__all__ = ["Config", "count", "count_per_record", "count_text", "Spectrum"]

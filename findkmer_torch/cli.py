@@ -1,18 +1,22 @@
-"""findkmer-torch CLI: the `count` subcommand of the port.
+"""findkmer-torch CLI: the `count` and `selftest` subcommands of the port.
 
     python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv [--device cuda]
+    python -m findkmer_torch.cli count -i a.fa b.fa -k 8 --per-input -o DIR
+    python -m findkmer_torch.cli count -i reads.fq -k 8 --per-record
+    python -m findkmer_torch.cli selftest [--device cuda] [--seed N]
 
 Same arguments and the same output bytes as `findkmer count` of the JAX
 package, whose JAX-free argument and output helpers it reuses
 (`findkmer_tpu.cli._add_common`, `_cfg_from_args` with its sparse
-autosize, `_open_out`; `findkmer_tpu.output.write_spectrum` and, for
-sparse tables, `write_spectrum_streaming` over the counter's chunked
-finalize).  Any k up to 31 counts.  `--device` picks the torch device;
-asking for cuda without one is an error, never a CPU run.
+autosize, `_open_out`, the --per-input file names `_per_input_name`;
+`findkmer_tpu.output.write_spectrum` and, for sparse tables,
+`write_spectrum_streaming` over the counter's chunked finalize).  Any k up
+to 31 counts.  `--device` picks the torch device; asking for cuda without
+one is an error, never a CPU run.
 
-Not yet ported, each refused with one error line and exit 2:
-`--per-input`, `--per-record`, `--spill`, `--devices` other than 1,
-`--profile`, and the legacy finalize FINDKMER_ORDERED_FINALIZE=0.
+Not yet ported, each refused with one error line and exit 2: `--spill`,
+`--devices` other than 1 (count and selftest), `--profile`, and the
+legacy finalize FINDKMER_ORDERED_FINALIZE=0.
 """
 
 from __future__ import annotations
@@ -23,14 +27,17 @@ import os
 import sys
 import time
 
-from findkmer_tpu.cli import _add_common, _cfg_from_args, _open_out
+from findkmer_tpu.cli import (
+    _add_common,
+    _cfg_from_args,
+    _open_out,
+    _per_input_name,
+)
 
 
 def _refuse_unported(args, cfg) -> None:
     where = "ROADMAP.md Queue 1"
     unported = [
-        (args.per_input, "--per-input", f"{where} item 6"),
-        (args.per_record, "--per-record", f"{where} item 6"),
         (bool(args.spill), "--spill", f"{where} item 8"),
         (args.devices != 1, f"--devices {args.devices}", f"{where} item 13"),
         (args.profile is not None, "--profile", f"{where} item 12"),
@@ -59,9 +66,61 @@ def _timed_chunks(chunks, timers):
             yield chunk
 
 
-def cmd_count(args, row_sort: str = "auto") -> int:
-    """`count`.  row_sort picks the sparse store's row sort for callers in
-    Python (`KmerCounter`: "auto", "kernel" or "plain"); it is no flag."""
+def _count_per_input(args, cfg, device, kernels: dict) -> int:
+    """--per-input: one spectrum file per input, written into -o DIR
+    (files named <input stem>.tsv, a repeated stem as <stem>.2.tsv)."""
+    from findkmer_tpu import output as output_mod
+    from findkmer_torch import pipeline
+
+    if args.output == "-" or (
+        os.path.exists(args.output) and not os.path.isdir(args.output)
+    ):
+        raise ValueError("--per-input writes one file per input: "
+                         "-o must name a directory")
+    os.makedirs(args.output, exist_ok=True)
+    stats = pipeline.StreamStats()
+    seen: dict = {}
+    outs = [os.path.join(args.output, _per_input_name(p, seen))
+            for p in args.input]
+    for path, out in zip(args.input, outs):
+        spectrum = pipeline.count_file(path, cfg, device, stats=stats,
+                                       **kernels)
+        with open(out, "wb") as f:
+            output_mod.write_spectrum(f, spectrum, cfg)
+    if args.stats == "json":
+        print(json.dumps(stats.as_dict()), file=sys.stderr)
+    return 0
+
+
+def _count_per_record(args, cfg, device, kernels: dict) -> int:
+    """--per-record: sectioned output, a '>header' line, then that
+    record's spectrum (one section per FASTA record / FASTQ read)."""
+    from findkmer_tpu import output as output_mod
+    from findkmer_torch import pipeline
+
+    stats = pipeline.StreamStats()
+    f, close = _open_out(args.output)
+    try:
+        for path in args.input:
+            for header, spectrum in pipeline.per_record_spectra(
+                path, cfg, device, stats=stats, **kernels
+            ):
+                f.write(b">" + header.encode("ascii", "replace") + b"\n")
+                output_mod.write_spectrum(f, spectrum, cfg)
+    finally:
+        if close:
+            f.close()
+    if args.stats == "json":
+        print(json.dumps(stats.as_dict()), file=sys.stderr)
+    return 0
+
+
+def cmd_count(args, row_sort: str = "auto",
+              dense_kernel: str = "fused") -> int:
+    """`count`.  row_sort and dense_kernel pick the counter's kernels for
+    callers in Python (`KmerCounter`: the sparse store's row sort "auto",
+    "kernel" or "plain"; the dense step "fused" or "two_stage"); they are
+    no flags."""
     import torch
 
     from findkmer_tpu import output as output_mod
@@ -72,6 +131,11 @@ def cmd_count(args, row_sort: str = "auto") -> int:
     if args.log:
         os.environ["FINDKMER_LOGLEVEL"] = args.log
     cfg = _cfg_from_args(args)
+    if args.per_input and args.per_record:
+        raise ValueError("--per-input and --per-record are exclusive")
+    if cfg.spill_dir and (args.per_input or args.per_record):
+        raise ValueError("--spill is for one combined spectrum; it does "
+                         "not compose with --per-input/--per-record")
     _refuse_unported(args, cfg)
     device = resolve_device(args.device)
     encoder = pipeline.host_encoder(cfg.use_native_encode)
@@ -80,6 +144,11 @@ def cmd_count(args, row_sort: str = "auto") -> int:
               "(findkmer_tpu/io/native.py) could not be built with $CC or "
               "cc; counting with its numpy fallback (same output, slower "
               "host path)", file=sys.stderr)
+    kernels = dict(row_sort=row_sort, dense_kernel=dense_kernel)
+    if args.per_input:
+        return _count_per_input(args, cfg, device, kernels)
+    if args.per_record:
+        return _count_per_record(args, cfg, device, kernels)
     stats = pipeline.StreamStats()
     timers = PhaseTimers() if args.stats == "json" else None
 
@@ -87,7 +156,7 @@ def cmd_count(args, row_sort: str = "auto") -> int:
     # multiple inputs: one combined spectrum (records concatenated)
     counter, state = pipeline.run_count(args.input, cfg, device,
                                         stats=stats, timers=timers,
-                                        row_sort=row_sort)
+                                        **kernels)
     f, close = _open_out(args.output)
     try:
         if counter.mode != "direct":
@@ -143,23 +212,56 @@ def build_parser() -> argparse.ArgumentParser:
                     help="suppress output of k-mers with count > N "
                          "(KMC -cx; 0 = off)")
     pc.add_argument("--per-input", action="store_true",
-                    help="one spectrum file per input (not yet ported)")
+                    help="one spectrum file per input (-o names a "
+                         "directory; files are <input-stem>.tsv)")
     pc.add_argument("--per-record", action="store_true",
-                    help="one spectrum per record (not yet ported)")
-    pc.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="torch device to count on (default cuda; cuda "
-                         "without a CUDA device is an error)")
+                    help="one spectrum per FASTA record / FASTQ read, "
+                         "as '>header' sections in one output stream")
+    _add_device(pc, "count on")
     pc.set_defaults(fn=cmd_count)
+
+    pst = sub.add_parser(
+        "selftest",
+        help="count synthetic DNA on this device and diff bit-exactly "
+             "against a built-in scalar reference (deployment sanity "
+             "check: bad install / device / native lib fails loudly)",
+    )
+    pst.add_argument("--devices", type=int, default=1,
+                     help="devices in the counting mesh (only 1 is ported)")
+    pst.add_argument("--seed", type=int, default=0)
+    _add_device(pst, "test")
+    pst.set_defaults(fn=cmd_selftest)
     return p
 
 
-def main(argv=None, *, row_sort: str = "auto") -> int:
+def _add_device(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help=f"torch device to {what} (default cuda; cuda "
+                        "without a CUDA device is an error)")
+
+
+def cmd_selftest(args, row_sort: str = "auto",
+                 dense_kernel: str = "fused") -> int:
+    from findkmer_torch import selftest
+
+    if args.devices != 1:
+        raise NotImplementedError(
+            f"--devices {args.devices} is not yet ported to findkmer_torch "
+            "(ROADMAP.md Queue 1 item 13)"
+        )
+    return selftest.run(args, row_sort=row_sort, dense_kernel=dense_kernel)
+
+
+def main(argv=None, *, row_sort: str = "auto",
+         dense_kernel: str = "fused") -> int:
+    """The CLI.  row_sort and dense_kernel pick the counter's kernels for
+    callers in Python (`cmd_count`); they are no flags."""
     from findkmer_tpu.utils.shmalloc import ensure_shared_alloc
 
     ensure_shared_alloc()  # before any large host buffer is allocated
     args = build_parser().parse_args(argv)
     try:
-        return args.fn(args, row_sort=row_sort)
+        return args.fn(args, row_sort=row_sort, dense_kernel=dense_kernel)
     except (ValueError, FileNotFoundError, RuntimeError) as e:
         # one clean line for expected failures (NotImplementedError is a
         # RuntimeError); FINDKMER_TRACEBACK=1 shows the full stack.

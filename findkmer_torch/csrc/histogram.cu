@@ -4,24 +4,16 @@
 // Replaces findkmer_tpu/ops/pallas/histogram_kernel.py::histogram_pallas.
 // The TPU kernel splits each code into hi/lo halves and bins them with an
 // int8 one-hot outer product on the MXU, because the TPU has no scatter.
-// Hopper has fast integer atomics, so this kernel bins each window directly:
-//
-//   * shared (k <= 6, 4^k * 4 B <= 16 KiB): every block keeps a private
-//     int32 histogram in shared memory, counts its windows there with
-//     shared atomicAdd, then adds its non-zero bins to the global table.
-//   * global (any k; the only one for k = 7..10, whose 64 KiB .. 4 MiB of
-//     bins exceed a block's static shared memory): atomicAdd straight into
-//     the global table, which stays resident in the 50 MB L2.
-//
-// The caller picks one (the wrapper takes shared for k <= 6, where it is
-// the faster of the two; both are timed at k = 4 and 6 by chip_smoke.py).
-// Both walk the windows with a grid stride over a few blocks per SM.
+// Hopper has fast integer atomics, so this kernel bins each window directly,
+// with the binning of bins.cuh: a private shared-memory histogram per block
+// for k <= 6, atomics straight into the global table for any k (the only
+// choice for k = 7..10).  The caller picks one (the wrapper takes shared
+// for k <= 6, where it is the faster of the two; both are timed at k = 4
+// and 6 by chip_smoke.py).
 //
 // Bound: about 5 B read per window (int32 code + 1 B validity flag) plus one
-// atomic per valid window.  Integer atomics commute, so the result is
-// bit-exact whatever order the blocks run in.  Hot bins (poly-A runs,
-// repeats) serialise their atomics on one address; warp-aggregated atomics
-// are later work.
+// atomic per valid window.  Hot bins (poly-A runs, repeats) serialise their
+// atomics on one address; warp-aggregated atomics are later work.
 //
 // Plain C interface, loaded with ctypes (findkmer_torch/ops/cuda/_build.py).
 // The launch goes on the caller's stream, allocates nothing and does not
@@ -31,23 +23,20 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "bins.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
-constexpr int kSharedMaxK = 6;
-constexpr int kSharedBins = 1 << (2 * kSharedMaxK);  // 4096 bins, 16 KiB
+namespace {
 
 // Validity is tested before the code is read: the codes of invalid windows
 // are arbitrary.  A valid code outside [0, nbins) is dropped rather than
 // written out of bounds.
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
-hist_shared(const int32_t* __restrict__ codes,
-            const uint8_t* __restrict__ valid, int64_t n, uint32_t nbins,
-            int32_t* __restrict__ out) {
-  __shared__ int32_t bins[kSharedBins];
-  for (uint32_t b = threadIdx.x; b < nbins; b += blockDim.x) bins[b] = 0;
-  __syncthreads();
+hist(const int32_t* __restrict__ codes, const uint8_t* __restrict__ valid,
+     int64_t n, uint32_t nbins, int32_t* __restrict__ out) {
+  __shared__ int32_t smem[kShared ? kSharedBins : 1];
+  int32_t* bins = kShared ? smem : out;
+  if (kShared) bins_zero(smem, nbins);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -56,25 +45,7 @@ hist_shared(const int32_t* __restrict__ codes,
       if (c < nbins) atomicAdd(&bins[c], 1);
     }
   }
-  __syncthreads();
-  for (uint32_t b = threadIdx.x; b < nbins; b += blockDim.x) {
-    const int32_t v = bins[b];
-    if (v) atomicAdd(&out[b], v);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-hist_global(const int32_t* __restrict__ codes,
-            const uint8_t* __restrict__ valid, int64_t n, uint32_t nbins,
-            int32_t* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (valid[i]) {
-      const uint32_t c = (uint32_t)codes[i];
-      if (c < nbins) atomicAdd(&out[c], 1);
-    }
-  }
+  if (kShared) bins_flush(smem, nbins, out);
 }
 
 }  // namespace
@@ -84,28 +55,22 @@ hist_global(const int32_t* __restrict__ codes,
 // shared: 1 runs the shared-memory kernel (k <= 6 only), 0 the global one.
 extern "C" int fk_histogram(const void* codes, const void* valid, int64_t n,
                             void* out, int k, int shared, void* stream) {
-  if (k < 1 || k > 10 || n < 0 || (shared && k > kSharedMaxK)) {
+  if (k < 1 || k > kMaxK || n < 0 || (shared && k > kSharedMaxK)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return (int)cudaGetLastError();
-  int dev = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int blocks = 0;
+  const cudaError_t err = grid_blocks(n, &blocks);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t need = (n + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sms * kBlocksPerSm;
-  const int blocks = (int)(need < cap ? need : cap);
   const uint32_t nbins = 1u << (2 * k);
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* c = (const int32_t*)codes;
   const uint8_t* v = (const uint8_t*)valid;
   int32_t* o = (int32_t*)out;
   if (shared) {
-    hist_shared<<<blocks, kThreads, 0, s>>>(c, v, n, nbins, o);
+    hist<true><<<blocks, kThreads, 0, s>>>(c, v, n, nbins, o);
   } else {
-    hist_global<<<blocks, kThreads, 0, s>>>(c, v, n, nbins, o);
+    hist<false><<<blocks, kThreads, 0, s>>>(c, v, n, nbins, o);
   }
   return (int)cudaGetLastError();
 }

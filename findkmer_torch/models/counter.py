@@ -7,13 +7,21 @@ the host layer drives either engine alike.  PyTorch runs eagerly, so
 there is no jit; buffers the JAX steps donate are updated in place.
 
 Dense (k <= Config.direct_k_max, or table_mode="direct"): one step per
-batch, `rows_from_batch` -> `window_codes` -> a histogram added into the
-table.  The histogram is picked from `Config.hist` as in the JAX package:
-  * auto:    the CUDA kernel K1 (`ops/cuda/histogram_kernel.py`) when the
-             counter's device is CUDA and k <= 10, else scatter.
-  * pallas:  the kernel's wrapper (the TPU package's name for its hand
-             kernel); on a CPU device the wrapper runs its plain twin.
-  * scatter / sort / onehot: the plain ops of `ops/histogram.py`.
+batch adds the histogram of the batch's valid windows into the table.
+The histogram is picked from `Config.hist` as in the JAX package:
+  * auto:    the hand kernels ("pallas" below) when the counter's device
+             is CUDA and k <= 10, else scatter.
+  * pallas:  the kernels' wrappers (the TPU package's name for its hand
+             kernels); on a CPU device each wrapper runs its plain version.
+             `dense_kernel` picks which:
+               "fused" (the default): K2 (`ops/cuda/window_histogram_
+               kernel.py`), window extraction and binning in one kernel,
+               straight from the 2-bit wire (or from uint8 rows);
+               "two_stage": `rows_from_batch` -> `window_codes` (plain
+               torch) -> K1 (`ops/cuda/histogram_kernel.py`), kept as the
+               cross-check.
+  * scatter / sort / onehot: `rows_from_batch` -> `window_codes` -> the
+             plain ops of `ops/histogram.py`.
 
 Sparse (k above the dense limit, or table_mode="sparse"): the JAX
 package's log-structured store.
@@ -56,12 +64,16 @@ from findkmer_torch.ops import histogram as hist_ops
 from findkmer_torch.ops import sparse as sparse_ops
 from findkmer_torch.ops import window as window_ops
 from findkmer_torch.ops.cuda.histogram_kernel import MAX_K, add_counts_cuda
+from findkmer_torch.ops.cuda.window_histogram_kernel import (
+    add_window_counts_cuda,
+)
 
 # Minimum row count of the store (the JAX package's STORE_ROWS) and the
 # column ladder floor: the same geometry as the reference store.
 STORE_ROWS = 64
 COL_FLOOR = 64
 ROW_SORTS = ("auto", "kernel", "plain")
+DENSE_KERNELS = ("fused", "two_stage")
 # finalize chunk size: entries pulled to the host per pinned copy
 FINALIZE_CHUNK = 1 << 22
 
@@ -108,7 +120,8 @@ def ingest(out: torch.Tensor, batch, k: int, canonical: bool, R: int):
                           window_ops.sentinel(codes.dtype)).reshape(-1))
 
 
-def make_counter(cfg: Config, device: torch.device, row_sort: str = "auto"):
+def make_counter(cfg: Config, device: torch.device, row_sort: str = "auto",
+                 dense_kernel: str = "fused"):
     """The single-device counter for cfg on `device`."""
     from findkmer_tpu.utils.shmalloc import ensure_shared_alloc
 
@@ -118,7 +131,8 @@ def make_counter(cfg: Config, device: torch.device, row_sort: str = "auto"):
             f"--devices {cfg.devices}: multi-device counting is not yet "
             "ported to findkmer_torch (ROADMAP.md Queue 1 item 13)"
         )
-    return KmerCounter(cfg, device, row_sort=row_sort)
+    return KmerCounter(cfg, device, row_sort=row_sort,
+                       dense_kernel=dense_kernel)
 
 
 @dataclass
@@ -145,7 +159,7 @@ class KmerCounter(RowStoreMixin):
     """Single-device k-mer counter: dense table or sparse row store."""
 
     def __init__(self, cfg: Config, device: torch.device,
-                 row_sort: str = "auto"):
+                 row_sort: str = "auto", dense_kernel: str = "fused"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.mode = cfg.resolved_table_mode
@@ -153,6 +167,12 @@ class KmerCounter(RowStoreMixin):
             raise ValueError(
                 f"row_sort must be one of {ROW_SORTS}, got {row_sort!r}"
             )
+        if dense_kernel not in DENSE_KERNELS:
+            raise ValueError(
+                f"dense_kernel must be one of {DENSE_KERNELS}, got "
+                f"{dense_kernel!r}"
+            )
+        self.dense_kernel = dense_kernel
         if cfg.spill_dir:
             if self.mode != "sparse":
                 raise ValueError(
@@ -241,7 +261,10 @@ class KmerCounter(RowStoreMixin):
         The dense table and the raw buffer are updated in place."""
         cfg = self.cfg
         if self.mode == "direct":
-            if self._method == "pallas":
+            if self._method == "pallas" and self.dense_kernel == "fused":
+                add_window_counts_cuda(batch, state.counts, cfg.k,
+                                       cfg.canonical, cfg.row_len)
+            elif self._method == "pallas":
                 _kernel_dense_step(
                     state.counts, batch, cfg.k, cfg.canonical, cfg.row_len
                 )

@@ -16,6 +16,8 @@ jax, so they cannot be imported from it):
 `prefetch_to_device` is the torch part: a producer thread runs the
 batchers while pinned host buffers and a side CUDA stream keep the next
 batches' H2D copies in flight during the current step.
+`per_record_spectra` counts each record of an input on its own (count
+--per-record), through the same batchers and one reused stager.
 """
 
 from __future__ import annotations
@@ -414,12 +416,17 @@ class _PinnedStager:
     A slot's pinned buffers are refilled only after the copy that last
     read them has finished (its event), so a reused buffer never races
     an in-flight DMA.  Each copy's event is also what the compute stream
-    waits on before it uses the batch."""
+    waits on before it uses the batch.  A slot holds flat byte buffers
+    that only grow: a batch of another shape (the short tail batch, or
+    the records of --per-record, one small batch each) is staged in a
+    view of them, so pinned memory is allocated a few times per run, not
+    once per shape change."""
 
     def __init__(self, slots: int, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        self.slots = [None] * slots  # (pinned tensors, event) per slot
+        # per slot: (flat pinned uint8 buffers, event of their last copy)
+        self.slots = [([], torch.cuda.Event()) for _ in range(slots)]
         self.next = 0
 
     def put(self, batch):
@@ -427,25 +434,22 @@ class _PinnedStager:
         arrs = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
         i = self.next
         self.next = (i + 1) % len(self.slots)
-        slot = self.slots[i]
-        if slot is not None:
-            slot[1].synchronize()  # its last copy has read the buffers
-        if slot is None or [b.shape for b in slot[0]] != [
-            a.shape for a in arrs
-        ]:
-            bufs = tuple(
-                torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
-                            pin_memory=True)
-                for a in arrs
-            )
-            slot = (bufs, torch.cuda.Event())
-            self.slots[i] = slot
-        bufs, event = slot
-        for buf, a in zip(bufs, arrs):
-            buf.copy_(torch.from_numpy(a))
+        bufs, event = self.slots[i]
+        event.synchronize()  # its last copy has read the buffers
+        views = []
+        for j, a in enumerate(arrs):
+            src = torch.from_numpy(a)
+            if j == len(bufs):
+                bufs.append(None)
+            if bufs[j] is None or bufs[j].numel() < a.nbytes:
+                bufs[j] = torch.empty(a.nbytes, dtype=torch.uint8,
+                                      pin_memory=True)
+            view = bufs[j][: a.nbytes].view(src.dtype).view(src.shape)
+            view.copy_(src)
+            views.append(view)
         with torch.cuda.stream(self.stream):
             devs = tuple(
-                buf.to(self.device, non_blocking=True) for buf in bufs
+                v.to(self.device, non_blocking=True) for v in views
             )
             event.record(self.stream)
         return devs if len(devs) > 1 else devs[0], event
@@ -471,7 +475,8 @@ def _host_tensors(batch):
 
 
 def prefetch_to_device(
-    batches: Iterator[np.ndarray], depth: int, device: torch.device
+    batches: Iterator[np.ndarray], depth: int, device: torch.device,
+    *, threaded: bool = True, stager: Optional[_PinnedStager] = None,
 ) -> Iterator:
     """Keep `depth` batches' H2D transfers in flight ahead of consumption.
 
@@ -482,18 +487,48 @@ def prefetch_to_device(
     buffers and sent with a non_blocking copy on a side stream; the
     compute stream waits on that copy's event.  On the CPU the host
     arrays are wrapped as tensors without a copy.
-    """
-    import queue
-    import threading
-    from collections import deque
 
+    threaded=False batches in the caller's thread (the copies stay
+    asynchronous): a thread per call would cost more than it overlaps for
+    a short input, such as one record of --per-record.  `stager` reuses
+    one `_PinnedStager` (its pinned buffers and side stream) across calls.
+    """
     depth = max(1, depth)
     device = torch.device(device)
     if device.type == "cuda":
-        stager = _PinnedStager(depth + 1, device)
+        stager = stager or _PinnedStager(depth + 1, device)
         put, take = stager.put, stager.take
     else:
         put, take = _host_tensors, (lambda staged: staged)
+    if threaded:
+        return _prefetch_threaded(batches, depth, put, take)
+    return _prefetch_inline(batches, depth, put, take)
+
+
+def _prefetch_inline(batches, depth: int, put, take) -> Iterator:
+    from collections import deque
+
+    dq: deque = deque()
+    it = iter(batches)
+    try:
+        while True:
+            while len(dq) < depth:
+                b = next(it, None)
+                if b is None:
+                    break
+                dq.append(put(b))
+            if not dq:
+                return
+            yield take(dq.popleft())
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()
+
+
+def _prefetch_threaded(batches, depth: int, put, take) -> Iterator:
+    import queue
+    import threading
+    from collections import deque
 
     _END = object()
     host_q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -561,10 +596,12 @@ def run_count(
     stats: Optional[StreamStats] = None,
     timers=None,
     row_sort: str = "auto",
+    dense_kernel: str = "fused",
 ):
     """Count every batch of one file, or of a list of files counted as
     one input (records concatenated), on `device` -> (counter, state),
-    not yet finalized.
+    not yet finalized.  row_sort and dense_kernel pick the counter's
+    kernels (`models/counter.py`).
 
     Pass a utils.prof.PhaseTimers to get a host/dispatch breakdown
     (device work is async: "host_batches" is the wait for the next
@@ -574,7 +611,8 @@ def run_count(
 
     paths = [paths] if isinstance(paths, (str, os.PathLike)) else list(paths)
     host_encoder(cfg.use_native_encode)  # build the C encoder first
-    counter = make_counter(cfg, device, row_sort=row_sort)
+    counter = make_counter(cfg, device, row_sort=row_sort,
+                           dense_kernel=dense_kernel)
     state = counter.init_state()
 
     def host_batches():
@@ -609,6 +647,7 @@ def count_file(
     stats: Optional[StreamStats] = None,
     timers=None,
     row_sort: str = "auto",
+    dense_kernel: str = "fused",
 ):
     """Single-host end-to-end count of one file, or of a list of files
     counted as one input, on `device`.
@@ -617,11 +656,84 @@ def count_file(
     uint64, counts int64); formatting lives in findkmer_tpu/output.py.
     "finalize" in `timers` includes the final device drain."""
     counter, state = run_count(path, cfg, device, stats=stats,
-                               timers=timers, row_sort=row_sort)
+                               timers=timers, row_sort=row_sort,
+                               dense_kernel=dense_kernel)
     if timers is None:
         return counter.finalize(state)
     with timers.phase("finalize"):
         return counter.finalize(state, timers=timers)
+
+
+class _ChunkIterReader:
+    """Reader adapter over an in-hand chunk iterator (per-record slicing)."""
+
+    def __init__(self, chunks_iter):
+        self._it = chunks_iter
+
+    def chunks(self):
+        return self._it
+
+
+def per_record_spectra(
+    path,
+    cfg: Config,
+    device: torch.device,
+    *,
+    stats: Optional[StreamStats] = None,
+    row_sort: str = "auto",
+    dense_kernel: str = "fused",
+):
+    """Yield (header, finalized spectrum) per record of one input (one
+    per FASTA record, one per FASTQ read), counted on `device`.
+
+    One counter serves every record, each with a fresh `init_state()`.
+    A record is batched in this thread (no producer thread per record)
+    and staged through one pinned stager for the whole input, so
+    thousands of short records mean neither thousands of threads nor of
+    pinned allocations.  The sparse raw buffer is sized for one row of
+    windows, not from the input's size (the CLI's hint for one combined
+    spectrum); a longer record grows it.  Memory is bounded by one
+    record's in-flight batches (and its spectrum, for sparse tables)."""
+    from findkmer_torch.models.counter import make_counter
+
+    cfg = cfg.replace(sparse_expected_entries=cfg.window_len)
+    counter = make_counter(cfg, device, row_sort=row_sort,
+                           dense_kernel=dense_kernel)
+    stager = (_PinnedStager(cfg.prefetch + 1, counter.device)
+              if counter.device.type == "cuda" else None)
+    reader, fused = _open_reader(path, cfg)
+    try:
+        it = reader.chunks()
+
+        def one_record(first):
+            yield first
+            if first.final:
+                return
+            for ch in it:
+                yield ch
+                if ch.final:
+                    return
+
+        while True:
+            first = next(it, None)
+            if first is None:
+                return
+            rec = one_record(first)
+            batches = _batches_from_reader(
+                _ChunkIterReader(rec), fused, cfg, stats=stats
+            )
+            state = counter.init_state()
+            for rows in prefetch_to_device(batches, cfg.prefetch,
+                                           counter.device, threaded=False,
+                                           stager=stager):
+                state = counter.step(state, rows)
+            # drain rec in case the record was pure whitespace (no
+            # batches consumed it past the final marker)
+            for _ in rec:
+                pass
+            yield first.header, counter.finalize(state)
+    finally:
+        reader.close()
 
 
 def build_native_encoder() -> bool:

@@ -73,7 +73,7 @@ def test_cli_stdout_and_multiple_inputs(fixtures_dir, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--per-input"], ["--per-record"], ["--spill", "x"], ["--devices", "2"],
+    ["--spill", "x"], ["--devices", "2"],
     ["--profile", "x"], ["-k", "21", "--spill", "x"],
     ["--table-mode", "sparse", "--devices", "0"],
 ])

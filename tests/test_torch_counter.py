@@ -20,6 +20,7 @@ from findkmer_tpu import pipeline as jax_pipeline
 from findkmer_tpu.config import Config
 from findkmer_tpu.models.counter import KmerCounter as JaxCounter
 from findkmer_torch import pipeline
+from findkmer_torch.models import counter as counter_mod
 from findkmer_torch.models.counter import KmerCounter, make_counter
 from findkmer_torch.table import DenseTable
 from oracle.scalar import count_fasta_file
@@ -162,6 +163,58 @@ def test_unported_or_invalid_configs_raise(cfg, err):
         make_counter(cfg, CPU)
 
 
+@pytest.fixture(scope="module")
+def jax_dense(fasta):
+    """(k, canonical) -> the JAX counter's dense spectrum of `fasta`."""
+    cache = {}
+
+    def get(k, canonical):
+        if (k, canonical) not in cache:
+            cfg = Config(k=k, canonical=canonical, hist="scatter", **GEOM)
+            cache[k, canonical] = np.asarray(
+                jax_pipeline.count_file(fasta, cfg))
+        return cache[k, canonical]
+
+    return get
+
+
+@pytest.mark.parametrize("dense_kernel", ["fused", "two_stage"])
+@pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
+@pytest.mark.parametrize("canonical", [False, True], ids=["fwd", "canon"])
+@pytest.mark.parametrize("k", [4, 8, 10])
+def test_dense_kernels_vs_jax_counter(fasta, jax_dense, monkeypatch, k,
+                                      canonical, packed, dense_kernel):
+    """hist="pallas" through K2 (fused) or extraction + K1 (two_stage),
+    each wrapper on the CPU running its plain version, against the JAX
+    counter; the step takes the route dense_kernel names, once a batch."""
+    calls = {"fused": 0, "two_stage": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(counter_mod, "add_window_counts_cuda",
+                        spy("fused", counter_mod.add_window_counts_cuda))
+    monkeypatch.setattr(counter_mod, "add_counts_cuda",
+                        spy("two_stage", counter_mod.add_counts_cuda))
+    cfg = Config(k=k, canonical=canonical, hist="pallas", packed_h2d=packed,
+                 **GEOM)
+    stats = pipeline.StreamStats()
+    got = pipeline.count_file(fasta, cfg, CPU, stats=stats,
+                              dense_kernel=dense_kernel)
+    np.testing.assert_array_equal(got, jax_dense(k, canonical))
+    other = "two_stage" if dense_kernel == "fused" else "fused"
+    assert calls[dense_kernel] == stats.batches and calls[other] == 0
+
+
+def test_dense_kernel_name_is_checked():
+    with pytest.raises(ValueError, match="dense_kernel"):
+        KmerCounter(Config(k=4), CPU, dense_kernel="k1")
+    assert make_counter(Config(k=4), CPU).dense_kernel == "fused"
+
+
 def test_hist_auto_picks_by_device():
     assert KmerCounter(Config(k=8), CPU)._method == "scatter"
     assert KmerCounter(Config(k=8, hist="pallas"), CPU)._method == "pallas"
@@ -174,19 +227,27 @@ def test_hist_auto_picks_by_device():
                                             (10, "int32")])
 def test_count_file_on_card_vs_cpu(fasta, k, count_dtype):
     """The CUDA path end to end (pinned staging ring reused over many
-    batches, the kernel once per batch) against the CPU path."""
+    batches; K2 once per batch, or with dense_kernel="two_stage" K1 once
+    per batch) against the CPU path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from findkmer_torch.ops.cuda.histogram_kernel import histogram_cuda
+    from findkmer_torch.ops.cuda.window_histogram_kernel import (
+        fused_window_histogram_cuda as k2,
+    )
 
     cfg = Config(k=k, count_dtype=count_dtype, chunk_len=64, batch_rows=2)
     want = pipeline.count_file(fasta, cfg, CPU)
-    before = histogram_cuda.launches
-    stats = pipeline.StreamStats()
-    got = pipeline.count_file(fasta, cfg, torch.device("cuda"), stats=stats)
-    assert stats.batches > 2 * (cfg.prefetch + 1)
-    assert histogram_cuda.launches - before == stats.batches
-    np.testing.assert_array_equal(got, want)
+    for dense_kernel, used, unused in (("fused", k2, histogram_cuda),
+                                       ("two_stage", histogram_cuda, k2)):
+        before, idle = used.launches, unused.launches
+        stats = pipeline.StreamStats()
+        got = pipeline.count_file(fasta, cfg, torch.device("cuda"),
+                                  stats=stats, dense_kernel=dense_kernel)
+        assert stats.batches > 2 * (cfg.prefetch + 1)
+        assert used.launches - before == stats.batches
+        assert unused.launches == idle
+        np.testing.assert_array_equal(got, want)
 
 
 def _stream(n, fail_at=None):

@@ -24,14 +24,11 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "findkmer_torch"
 
 
-def _cli_without_jax(path, out, extra, tmp_path):
-    """Run the port's CLI in a fresh interpreter; fail if jax loaded."""
-    code = (
-        "import sys\n"
-        "from findkmer_torch.cli import main\n"
-        f"rc = main(['count', '-i', {path!r}, '--device', 'cpu',"
-        f" '-o', {str(out)!r}] + {extra!r})\n"
-        "assert rc == 0, rc\n"
+def _without_jax(code, tmp_path):
+    """Run `code` in a fresh interpreter; fail if it fails or jax loaded.
+    -> its stdout."""
+    code += (
+        "\nimport sys\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'jaxlib' not in sys.modules, 'jaxlib was imported'\n"
     )
@@ -39,6 +36,18 @@ def _cli_without_jax(path, out, extra, tmp_path):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(tmp_path), timeout=300)
     assert res.returncode == 0, res.stderr
+    return res.stdout
+
+
+def _cli_without_jax(path, out, extra, tmp_path):
+    """Run the port's CLI in a fresh interpreter; fail if jax loaded."""
+    _without_jax(
+        "from findkmer_torch.cli import main\n"
+        f"rc = main(['count', '-i', {path!r}, '--device', 'cpu',"
+        f" '-o', {str(out)!r}] + {extra!r})\n"
+        "assert rc == 0, rc\n",
+        tmp_path,
+    )
 
 
 def test_cli_count_never_imports_jax(fixtures_dir, tmp_path):
@@ -57,6 +66,45 @@ def test_cli_sparse_count_never_imports_jax(fixtures_dir, tmp_path):
                      tmp_path)
     counts = count_fasta_file(path, 21, canonical=True)
     assert out.read_text().splitlines() == spectrum_lines(counts, 21)
+
+
+def test_cli_per_record_never_imports_jax(fixtures_dir, tmp_path):
+    from oracle.scalar import count_kmers_in_text, parse_fasta_text
+
+    path = os.path.join(fixtures_dir, "multi.fa")
+    out = tmp_path / "o.txt"
+    _cli_without_jax(path, out, ["-k", "4", "--per-record"], tmp_path)
+    want = []
+    for header, seq in parse_fasta_text(open(path).read()):
+        want.append(f">{header}")
+        want.extend(spectrum_lines(count_kmers_in_text(seq, 4), 4))
+    assert out.read_text().splitlines() == want
+
+
+def test_selftest_never_imports_jax(tmp_path):
+    out = _without_jax(
+        "from findkmer_torch.cli import main\n"
+        "assert main(['selftest', '--device', 'cpu']) == 0\n",
+        tmp_path,
+    )
+    assert "selftest OK (3/3 cases bit-exact)" in out
+
+
+def test_api_never_imports_jax(fixtures_dir, tmp_path):
+    path = os.path.join(fixtures_dir, "tiny.fa")
+    want = count_fasta_file(path, 4)
+    out = _without_jax(
+        "import findkmer_torch as fkt\n"
+        f"spec = fkt.count({path!r}, 4, device='cpu')\n"
+        "print(spec['ACGT'], len(list(spec.items())), spec.total())\n"
+        f"for h, s in fkt.count_per_record({path!r}, 21, device='cpu'):\n"
+        "    s['A' * 21], list(s.items())\n"
+        "t = fkt.count_text('>r\\nACGTACGT\\n', 4, device='cpu')\n"
+        "assert t['ACGT'] == 2 and dict(t.items())['CGTA'] == 1\n",
+        tmp_path,
+    )
+    assert out.split() == [str(want.get("ACGT", 0)), str(len(want)),
+                           str(sum(want.values()))]
 
 
 def test_port_sources_do_not_import_jax():
