@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--only rowsort]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
 sm_90a) and nvcc.  Each phase prints one line; any failure raises, so the
@@ -20,8 +20,9 @@ exit code is non-zero and the final ok-line is not printed.
      k in {4, 6, 8, 10}: median CUDA-event times of the kernel (both
      histograms for k <= 6), of the plain scatter histogram (`index_add_`
      into a trash bin, no host sync: the `plain_ms` baseline, at 98%
-     valid) and of the twin (`bincount(codes[valid])`, whose boolean mask
-     syncs with the host)
+     valid), of that one `index_add_` call alone on indices prepared
+     beforehand (`library_ms`) and of the twin (`bincount(codes[valid])`,
+     whose boolean mask syncs with the host)
   4. K2 (fused window histogram) vs `fused_window_histogram_reference` on
      the card, exact, through both entries (uint8 rows, and the 2-bit
      wire packed on the card as the host packer lays it out): k in
@@ -37,14 +38,21 @@ exit code is non-zero and the final ok-line is not printed.
      sync-free `index_add_` scatter: `plain_ms`)
   5. K3 (row sort) vs `sort_rows_reference` (torch.sort + gather) on the
      card, exact: keys equal, (key, count) pairs equal as multisets per
-     row; cases random, all equal, all sentinel, sorted, reversed; shapes
-     (3, 1000) and (64, 64) in every key/payload dtype, the production
-     row sorts of a 256 Mbase count ((262144, 1024) int64 keys, (262144,
-     2048) int64 keys + int32 counts, (262144, 1024) int32 keys) and one
-     (1, 2^22) row, which takes the kernel's global passes.  Then the
-     median CUDA-event ms of kernel and plain version at the production
-     shapes, timed in turn (the kernel sorts in place, so each of its runs
-     restores the input first; that copy is timed alone and subtracted)
+     row; cases random, all equal, all sentinel, sorted, reversed, and
+     random keys with many duplicates under distinct payloads; shapes
+     (3, 1000) and (64, 64) and 37 rows of every row length at a seam of
+     the kernel (1, 2, 7, 8, 9, 255, 256, 257, 1023, 1025, 2047, 2049,
+     4096 and 4097, one past the tile) in every key/payload dtype, the
+     production row sorts of a 256 Mbase count ((262144, 1024) int64
+     keys, (262144, 2048) int64 keys + int32 counts, (262144, 1024) int32
+     keys) and one (1, 2^22) row, which takes the kernel's global passes.
+     Then the median CUDA-event ms of the kernel and of the library call
+     (`torch.sort`, plus a gather where there is a payload: also the plain
+     version) at the production shapes, timed in turn (the kernel sorts
+     in place, so each of its runs restores the input first; that copy is
+     timed alone and subtracted), beside the bound (each byte of the rows
+     read once and written once at 3.35 TB/s, or the network's
+     compare-exchanges at the card's 32-bit rate, whichever is larger)
   6. dense main path: a seeded 256 Mbase multi-record FASTA (N runs,
      lowercase, IUPAC codes, poly-A runs) counted by `findkmer_torch.cli
      count` at --batch-rows 1024 on cuda for k=8, k=8 --canonical and
@@ -79,24 +87,33 @@ over four steps of a staged k=8 batch on the kernel path, with the
 device time of each kernel summed by name and the share of the steps'
 wall time the device was busy.
 
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+With --only rowsort the script stops after phase 5 (and first prints
+what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
+the instructions of its production kernels by opcode): the quick check of an edit to that kernel.  It prints no summary and no ok-line.
+
+The line before the last is a JSON summary of the kernels (for each its
+launches on the main paths, its ms beside the plain version's, the one
+library call's where there is one, and its bound); the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -150,6 +167,15 @@ SORT_SHAPES = (
     ("raw_k15", (262144, 1024), torch.int32, None),
 )
 SORT_CASES = ("random", "equal", "sentinel", "sorted", "reversed")
+# row lengths at the seams of K3: a thread's 8 slots, a warp's 256, the
+# production rows' 1024 and 2048, the tile of 4096 and one past it
+SORT_SEAMS = (1, 2, 7, 8, 9, 255, 256, 257, 1023, 1025, 2047, 2049, 4096,
+              4097)
+SEAM_ROWS = 37
+# the card's published peaks (H100 SXM): device memory, and 32-bit
+# operations outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 SPARSE_RUNS = ((21, ["--canonical"]), (15, []))
 ORACLE_RUNS = ((4, []), (8, []), (4, ["-z"]), (11, []),
                (21, ["--canonical"]), (31, []))
@@ -182,6 +208,59 @@ def phase_environment() -> str:
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: need compute capability 9.0, got {cap}")
     return smi
+
+
+def phase_ptxas(name: str) -> None:
+    """What `nvcc -Xptxas -v` says of one source's kernels: registers,
+    spills, shared memory (a second compile of that source, to no file)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         "-o", os.devnull, str(_build.CSRC / name)],
+        capture_output=True, text=True, check=True)
+    lines = res.stderr.splitlines()
+    registers, entry = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "Used" in ln and entry:
+            registers[entry] = int(ln.split("Used ")[1].split(" registers")[0])
+    spills = [ln.strip() for ln in lines
+              if "spill" in ln and "0 bytes spill stores, 0 bytes" not in ln]
+    say("ptxas", source=name, seconds=time.perf_counter() - t0,
+        kernels=len(registers), registers=registers, spills=spills)
+
+
+# the row sort's instantiations at SORT_SHAPES, by a piece of their mangled
+# names: key type, payload type, log2 of the tile
+SORT_SASS = {"raw_k21": "sort_tilesIlNS_5NoValELi10ELb0",
+             "counted_k21": "sort_tilesIliLi11ELb0",
+             "raw_k15": "sort_tilesIiNS_5NoValELi10ELb0"}
+
+
+def phase_sass() -> None:
+    """Instructions of the row sort's production kernels in the built
+    library, counted by opcode from `cuobjdump -sass` (the kernels are
+    straight-line code, so this is what a thread executes): how many go to
+    the integer pipe (compares, selects, logic), how many are shuffles."""
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
+                         capture_output=True, text=True, check=True)
+    counts = {}
+    for body in res.stdout.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0]
+        shape = next((k for k, v in SORT_SASS.items() if v in name), None)
+        if shape is None:
+            continue
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                body))
+        counts[shape] = {"total": sum(ops.values()),
+                         **dict(ops.most_common(12))}
+    if set(counts) != set(SORT_SASS):
+        raise AssertionError(f"sass: found only {sorted(counts)}")
+    say("sass", source="rowsort.cu", per_thread=counts)
 
 
 def phase_build() -> None:
@@ -290,16 +369,29 @@ def phase_timing(seed: int) -> dict:
                          f"kernel != twin at k={k} valid={share}")
             _check_equal(hist_ops.histogram(codes, valid, table_size), want,
                          f"scatter != twin at k={k} valid={share}")
+            # the one library call that bins: index_add_ alone, the invalid
+            # windows already sent to the trash bin, the table zeroed
+            idx = torch.where(valid, codes, table_size).reshape(-1).long()
+            ones = torch.ones(idx.numel(), dtype=torch.int32, device=dev)
+            bins = torch.zeros(table_size + 1, dtype=torch.int32, device=dev)
+            _check_equal(bins.index_add_(0, idx, ones)[:table_size], want,
+                         f"index_add_ != twin at k={k} valid={share}")
             fns = {
                 "plain": lambda: hist_ops.histogram(codes, valid, table_size),
+                "library": lambda: bins.index_add_(0, idx, ones),
                 "kernel": lambda: histogram_cuda(codes, valid, k),
                 "twin": lambda: histogram_reference(codes, valid, k),
             }
             if k <= SHARED_MAX_K:
                 fns["kernel_global"] = lambda: histogram_cuda(
                     codes, valid, k, shared=False)
-            timing[f"k{k}_valid{share}"] = _time_alternating(fns)
-            del codes, valid
+            timing[f"k{k}_valid{share}"] = {
+                **_time_alternating(fns),
+                # codes and the validity mask in, the table out; one add
+                # per valid window
+                "bound": _bound(codes.numel() * 5 + table_size * 4,
+                                float(valid.sum()))}
+            del codes, valid, idx, ones, bins
     say("kernel_timing", shape=list(PROD_SHAPE), timing=timing)
     return timing
 
@@ -416,7 +508,11 @@ def phase_window_timing(seed: int) -> dict:
         want = fused_window_histogram_reference(rows, k)
         for name, fn in fns.items():
             _check_equal(fn(), want, f"{name} != plain version at k={k}")
-        timing[f"k{k}"] = _time_alternating(fns)
+        timing[f"k{k}"] = {
+            **_time_alternating(fns),
+            # the wire in, the table out; one add per valid window
+            "bound": _bound(packed.numel() + validbits.numel() + 4 ** k * 4,
+                            valid_share * shape[0] * PROD_SHAPE[1])}
         shares[f"k{k}"] = valid_share
         del rows, packed, validbits
         torch.cuda.empty_cache()
@@ -425,9 +521,22 @@ def phase_window_timing(seed: int) -> dict:
     return timing
 
 
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least ms the card could take: `nbytes` moved at its memory rate
+    or `ops` done at its 32-bit rate, whichever takes longer."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
 def _sort_input(shape, kd, case, gen: torch.Generator) -> torch.Tensor:
     dev = torch.device("cuda")
     G, C = shape
+    if case == "duplicates":
+        return torch.randint(0, 50, shape, generator=gen, device=dev,
+                             dtype=kd)
     if case == "random":
         top = 4 ** 21 if kd == torch.int64 else 4 ** 15
         return torch.randint(0, top, shape, generator=gen, device=dev,
@@ -456,14 +565,22 @@ def phase_rowsort_vs_plain(seed: int) -> int:
     dts = (torch.int32, torch.int64)
     combos = [(shape, kd, vd) for shape in ((3, 1000), (64, 64))
               for kd in dts for vd in (None,) + dts]
+    combos += [((SEAM_ROWS, C), kd, vd) for C in SORT_SEAMS
+               for kd in dts for vd in (None,) + dts]
     combos += [(shape, kd, vd) for _, shape, kd, vd in SORT_SHAPES]
     combos.append(((1, 1 << 22), torch.int64, torch.int32))
     n_cases = 0
     for shape, kd, vd in combos:
-        for case in SORT_CASES:
+        for case in SORT_CASES + ("duplicates",):
             keys = _sort_input(shape, kd, case, gen)
-            vals = None if vd is None else torch.randint(
-                0, 1 << 30, shape, generator=gen, device="cuda", dtype=vd)
+            if vd is None:
+                vals = None
+            elif case == "duplicates":  # a distinct payload in every slot
+                vals = torch.arange(keys.numel(), device="cuda",
+                                    dtype=vd).reshape(shape)
+            else:
+                vals = torch.randint(0, 1 << 30, shape, generator=gen,
+                                     device="cuda", dtype=vd)
             wk, wv = sort_rows_reference(keys, vals)
             gk, gv = sort_rows_cuda(keys, vals)  # in place on the inputs
             torch.cuda.synchronize()
@@ -481,10 +598,14 @@ def phase_rowsort_vs_plain(seed: int) -> int:
 
 
 def phase_rowsort_timing(seed: int) -> dict:
-    """Median CUDA-event ms of K3 and of the plain version at the
-    production row-sort shapes, random codes, timed in turn.  The kernel
-    sorts in place: each of its runs first restores the unsorted input
-    (`copy`, timed alone too); its ms is kernel+copy minus copy."""
+    """Median CUDA-event ms of K3 and of the library call (`torch.sort`,
+    plus a gather of the payload: the plain version too) at the production
+    row-sort shapes, random codes, timed in turn.  The kernel sorts in
+    place: each of its runs first restores the unsorted input (`copy`,
+    timed alone too); its ms is kernel+copy minus copy.  The bound counts
+    keys and payload read once and written once, and the network's
+    compare-exchanges (P/2 a stage, log2(P) (log2(P) + 1) / 2 stages for
+    rows of P = next_pow2(C) slots)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     timing = {}
     for name, shape, kd, vd in SORT_SHAPES:
@@ -509,8 +630,14 @@ def phase_rowsort_timing(seed: int) -> dict:
             "copy": copy,
         })
         t["kernel"] = {"ms": t["kernel+copy"]["ms"] - t["copy"]["ms"]}
+        slot = src.element_size() + (vsrc.element_size() if vd else 0)
+        log_p = (shape[1] - 1).bit_length()
+        bound = _bound(2 * src.numel() * slot,
+                       shape[0] * (1 << log_p >> 1) * log_p * (log_p + 1) / 2)
         timing[name] = {"shape": list(shape), "keys": str(kd),
-                        "vals": str(vd), **t}
+                        "vals": str(vd), **t,
+                        "library_ms": t["plain"]["ms"], **bound,
+                        "share_of_bound": bound["bound_ms"] / t["kernel"]["ms"]}
         del src, vsrc, kbuf, vbuf
         torch.cuda.empty_cache()
     say("rowsort_timing", timing=timing)
@@ -1002,10 +1129,19 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
+    ap.add_argument("--only", choices=["rowsort"],
+                    help="stop after the row sort's phases (no summary, no "
+                         "ok-line): the quick check of an edit to K3")
     args = ap.parse_args()
 
     smi = phase_environment()
     phase_build()
+    if args.only == "rowsort":
+        phase_ptxas("rowsort.cu")
+        phase_sass()
+        phase_rowsort_vs_plain(args.seed)
+        phase_rowsort_timing(args.seed)
+        return 0
     max_err = phase_kernel(args.seed)
     timing = phase_timing(args.seed)
     k2_err = phase_window_kernel(args.seed)
@@ -1024,6 +1160,13 @@ def main() -> int:
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
+
+    def ms_of(case: dict) -> dict:
+        return {name: t["ms"] for name, t in case.items() if "ms" in t}
+
+    def bound_of(b: dict) -> dict:
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+
     print(json.dumps({"kernels": [{
         "name": "histogram_cuda",
         "route": "cuda",
@@ -1033,11 +1176,14 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": t8["kernel"]["ms"],
         "plain_ms": t8["plain"]["ms"],
+        **bound_of(t8["bound"]),
+        "library_ms": t8["library"]["ms"],
         "plain": "index_add_ scatter histogram, no host sync",
+        "library": "index_add_ alone, indices prepared beforehand",
         "shape": list(PROD_SHAPE),
         "k": 8,
         "valid_share": TIMED_VALID[-1],
-        "by_case": {case: {name: t["ms"] for name, t in v.items()}
+        "by_case": {case: {**ms_of(v), **bound_of(v["bound"])}
                     for case, v in timing.items()},
         "card": smi,
     }, {
@@ -1049,11 +1195,13 @@ def main() -> int:
         "max_abs_err": k2_err,
         "ms": w8["kernel"]["ms"],
         "plain_ms": w8["plain"]["ms"],
+        **bound_of(w8["bound"]),
+        "library_ms": None,
         "plain": "unpack, plain-torch window extraction, index_add_ "
                  "scatter histogram, no host sync",
         "shape": [PROD_SHAPE[0], PROD_SHAPE[1] + 7],
         "k": 8,
-        "by_k": {k: {name: t["ms"] for name, t in v.items()}
+        "by_k": {k: {**ms_of(v), **bound_of(v["bound"])}
                  for k, v in k2_timing.items()},
         "dense_bases_per_s": {
             f"k{r['k']}{''.join(r['args'])}_{r['route']}_{r['pass']}":
@@ -1068,10 +1216,17 @@ def main() -> int:
         "max_abs_err": sort_err,
         "ms": raw21["kernel"]["ms"],
         "plain_ms": raw21["plain"]["ms"],
+        **bound_of(raw21),
+        "library_ms": raw21["library_ms"],
         "plain": "torch.sort along the rows + gather of the counts",
+        "library": "the same torch.sort (+ gather): the plain version is "
+                   "the library call",
         "shape": raw21["shape"],
         "by_shape": {name: {"shape": t["shape"], "ms": t["kernel"]["ms"],
-                            "plain_ms": t["plain"]["ms"]}
+                            "plain_ms": t["plain"]["ms"],
+                            "library_ms": t["library_ms"],
+                            **bound_of(t),
+                            "share_of_bound": t["share_of_bound"]}
                      for name, t in sort_timing.items()},
         "sparse_bases_per_s": {
             f"k{r['k']}{''.join(r['args'])}": r["bases_per_s"]

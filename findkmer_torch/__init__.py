@@ -1,9 +1,12 @@
 """findkmer_torch: the PyTorch / CUDA port of findkmer-tpu.
 
 A second package beside `findkmer_tpu/`, which stays the reference it is
-held against.  The port imports `torch` and never `jax`; the JAX-free
-host layer of `findkmer_tpu` (config, io, output, the native C encoder)
-is reused by import.
+held against.  The port imports `torch`, never `jax`, and nothing of
+`findkmer_tpu`: it keeps its own copy of the host layer it needs
+(`config`, `io`, `output`, `utils`, the loader of the C host encoder,
+which compiles the repository's `src/native/encode.c` into the port's own
+build directory).  Only the tests import both packages, to hold each copy
+to its original.
 
 What runs today on one device, for any k up to 31 (a dense 4^k table for
 k <= 10, k <= 15 with `--table-mode direct`; the sparse sorted-run store
@@ -24,7 +27,7 @@ dense step (`csrc/window_histogram.cu`,
 Importing the package stays cheap: no torch import here.
 """
 
-from findkmer_tpu.config import Config
+from findkmer_torch.config import Config
 
 
 def __getattr__(name):

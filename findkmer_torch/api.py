@@ -11,25 +11,46 @@ torch device named explicitly (`device="cuda"` or `"cpu"`, or a
     spec.to_dict(), spec.total(), spec.distinct(), spec.histo()
     fkt.count(["a.fa"], k=21, canonical=True, device="cuda").write("o.tsv")
 
-The returned `Spectrum` is the JAX package's, with the two methods that
-reach its jax-importing window helpers (`__getitem__`, `items`) taking
-the port's instead: every method works without jax.
+`Spectrum` is the port's own copy of the JAX package's class, with the
+same methods; its lookups use the port's window helpers.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from findkmer_tpu.api import Spectrum as _Spectrum
-from findkmer_tpu.config import Config
+from findkmer_torch.config import Config
 
 
-class Spectrum(_Spectrum):
+@dataclass
+class Spectrum:
     """A finalized k-mer spectrum (dense or sparse backing)."""
 
+    k: int
+    canonical: bool
+    _dense: Optional[np.ndarray] = None            # (4^k,) counts
+    _codes: Optional[np.ndarray] = None            # sorted uint64 codes
+    _counts: Optional[np.ndarray] = None
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_engine(cls, spectrum, cfg: Config) -> "Spectrum":
+        if isinstance(spectrum, tuple):
+            codes, counts = spectrum
+            return cls(
+                k=cfg.k, canonical=cfg.canonical,
+                _codes=np.asarray(codes, dtype=np.uint64),
+                _counts=np.asarray(counts),
+            )
+        return cls(
+            k=cfg.k, canonical=cfg.canonical, _dense=np.asarray(spectrum)
+        )
+
+    # ------------------------------------------------------------------
     def __getitem__(self, kmer: Union[str, int]) -> int:
         from findkmer_torch.ops.window import str_to_code
 
@@ -41,6 +62,15 @@ class Spectrum(_Spectrum):
             return int(self._counts[i])
         return 0
 
+    def total(self) -> int:
+        arr = self._dense if self._dense is not None else self._counts
+        return int(arr.sum())
+
+    def distinct(self) -> int:
+        if self._dense is not None:
+            return int(np.count_nonzero(self._dense))
+        return int(self._counts.size)
+
     def items(self) -> Iterable[Tuple[str, int]]:
         """(kmer, count) pairs in lexicographic order, zeros skipped."""
         from findkmer_torch.ops.window import code_to_str
@@ -51,6 +81,38 @@ class Spectrum(_Spectrum):
         else:
             for code, cnt in zip(self._codes, self._counts):
                 yield code_to_str(int(code), self.k), int(cnt)
+
+    def to_dict(self) -> Dict[str, int]:
+        return dict(self.items())
+
+    def histo(self, max_count: int = 10000) -> np.ndarray:
+        """Count-of-counts: h[m] = number of distinct k-mers seen m times
+        (m clipped to max_count; h[0] unused)."""
+        counts = (
+            self._dense[self._dense > 0]
+            if self._dense is not None
+            else self._counts
+        )
+        clipped = np.minimum(counts.astype(np.int64), max_count)
+        return np.bincount(clipped, minlength=max_count + 1)
+
+    def write(self, path_or_file, *, zeros: bool = False, sep: str = "\t"):
+        """Write the spectrum in CLI format (lexicographic KMER<sep>COUNT)."""
+        from findkmer_torch import output as output_mod
+
+        cfg = Config(
+            k=self.k, canonical=self.canonical, zeros=zeros, sep=sep,
+            table_mode="direct" if self._dense is not None else "sparse",
+        )
+        spectrum = (
+            self._dense
+            if self._dense is not None
+            else (self._codes, self._counts)
+        )
+        if hasattr(path_or_file, "write"):
+            return output_mod.write_spectrum(path_or_file, spectrum, cfg)
+        with open(path_or_file, "wb") as f:
+            return output_mod.write_spectrum(f, spectrum, cfg)
 
 
 def _device(device) -> torch.device:
@@ -123,8 +185,8 @@ def count_text(text: str, k: int, *,
     small data)."""
     import io
 
-    from findkmer_tpu.io.fasta import FastaReader
     from findkmer_torch import pipeline
+    from findkmer_torch.io.fasta import FastaReader
     from findkmer_torch.models.counter import KmerCounter
 
     cfg = Config(k=k, **kw)

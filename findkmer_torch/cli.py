@@ -5,13 +5,13 @@
     python -m findkmer_torch.cli count -i reads.fq -k 8 --per-record
     python -m findkmer_torch.cli selftest [--device cuda] [--seed N]
 
-Same arguments and the same output bytes as `findkmer count` of the JAX
-package, whose JAX-free argument and output helpers it reuses
-(`findkmer_tpu.cli._add_common`, `_cfg_from_args` with its sparse
-autosize, `_open_out`, the --per-input file names `_per_input_name`;
-`findkmer_tpu.output.write_spectrum` and, for sparse tables,
-`write_spectrum_streaming` over the counter's chunked finalize).  Any k up
-to 31 counts.  `--device` picks the torch device; asking for cuda without
+Same arguments (flags, defaults, help texts, exit codes) and the same
+output bytes as `findkmer count` of the JAX package: `_add_common`,
+`_cfg_from_args` with its sparse autosize, `_open_out` and the
+--per-input file names `_per_input_name` are the port's own copies of
+that CLI's helpers, and the spectrum is written by `findkmer_torch.output`
+(`write_spectrum` and, for sparse tables, `write_spectrum_streaming` over
+the counter's chunked finalize).  Any k up to 31 counts.  `--device` picks the torch device; asking for cuda without
 one is an error, never a CPU run.
 
 Not yet ported, each refused with one error line and exit 2: `--spill`,
@@ -27,12 +27,187 @@ import os
 import sys
 import time
 
-from findkmer_tpu.cli import (
-    _add_common,
-    _cfg_from_args,
-    _open_out,
-    _per_input_name,
-)
+from findkmer_torch.config import Config
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("-i", "--input", required=True, nargs="+",
+                   help="FASTA/FASTQ/SAM/BAM file(s), optionally gzipped "
+                        "('-' = stdin)")
+    p.add_argument("--format", choices=["auto", "fasta", "fastq", "sam",
+                                        "bam"],
+                   default="auto", help="input format (auto-sniffed)")
+    p.add_argument("--min-qual", type=int, default=0, metavar="N",
+                   help="mask bases with phred quality < N to 'N' "
+                        "(FASTQ/SAM/BAM inputs; 0 = off)")
+    p.add_argument("--qual-offset", type=int, default=33,
+                   help="ASCII phred offset for FASTQ/SAM qualities "
+                        "(default 33; BAM is raw phred)")
+    p.add_argument("-k", type=int, required=True, help="k-mer length (1..31)")
+    p.add_argument("-o", "--output", default="-", help="output path ('-' = stdout)")
+    p.add_argument("-z", "--zeros", action="store_true",
+                   help="emit zero-count k-mers (direct tables only)")
+    p.add_argument("--canonical", action="store_true",
+                   help="count canonical (revcomp-min) k-mers")
+    p.add_argument("--table-mode", choices=["auto", "direct", "sparse"],
+                   default="auto")
+    p.add_argument("--hist", choices=["auto", "scatter", "sort", "onehot",
+                                      "pallas"], default="auto")
+    p.add_argument("--batch-rows", type=int, default=256)
+    p.add_argument("--chunk-len", type=int, default=65536)
+    p.add_argument("--sparse-capacity", type=int, default=1 << 22)
+    p.add_argument("--sparse-compact-entries", type=int, default=1 << 28,
+                   help="buffered raw window codes between store "
+                        "compactions (the spill check runs per "
+                        "compaction)")
+    p.add_argument("--spill", default="", metavar="DIR",
+                   help="disk-spill directory (sparse tables): crossing "
+                        "--sparse-capacity distinct k-mers spills sorted "
+                        "runs to DIR instead of erroring; finalize "
+                        "streams a k-way merge — HBM-bounded counting "
+                        "for spectra larger than device memory.  DIR "
+                        "must be empty; consumed run files are deleted "
+                        "after a successful finalize")
+    p.add_argument("--count-dtype", choices=["int32", "int64"],
+                   default="int32",
+                   help="count dtype (int64 for >2^31 observations of a "
+                        "single k-mer; enables 64-bit mode)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="devices in the counting mesh (1 = single-device "
+                        "engine, 0 = all available, N = first N)")
+    p.add_argument("--merge", choices=["auto", "psum", "psum_scatter",
+                                       "all_to_all"], default="auto",
+                   help="multi-device table merge strategy")
+    p.add_argument("--sep", default="\t")
+    p.add_argument("--counts-only", action="store_true")
+    p.add_argument("--no-native-encode", action="store_true")
+    p.add_argument("--stats", choices=["none", "json"], default="none",
+                   help="print stream statistics to stderr")
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="emit a jax.profiler trace to LOGDIR")
+    p.add_argument("--log", default=None, help="log level (DEBUG/INFO/...)")
+
+
+def _cfg_from_args(args):
+    cfg = Config(
+        k=args.k,
+        canonical=args.canonical,
+        table_mode=args.table_mode,
+        hist=args.hist,
+        batch_rows=args.batch_rows,
+        chunk_len=max(args.chunk_len, args.k),
+        sparse_capacity=args.sparse_capacity,
+        sparse_compact_entries=getattr(args, "sparse_compact_entries",
+                                       1 << 28),
+        spill_dir=getattr(args, "spill", ""),
+        count_dtype=args.count_dtype,
+        devices=args.devices,
+        merge=args.merge,
+        input_format=args.format,
+        min_qual=getattr(args, "min_qual", 0),
+        qual_offset=getattr(args, "qual_offset", 33),
+        zeros=args.zeros,
+        sep=args.sep,
+        out_counts_only=args.counts_only,
+        min_count=getattr(args, "min_count", 0),
+        max_count=getattr(args, "max_count", 0),
+        use_native_encode=not args.no_native_encode,
+    )
+    # fail fast, before any counting happens
+    cfg.resolved_table_mode
+    if cfg.zeros and cfg.resolved_table_mode != "direct":
+        hint = (
+            " (pass --table-mode direct to force a dense 4^k table; "
+            "valid up to k=15)"
+            if cfg.table_mode == "auto" and cfg.k <= 15
+            else ""
+        )
+        raise ValueError(
+            "-z/--zeros requires a direct (dense) table; "
+            f"k={cfg.k} resolves to a sparse table{hint}"
+        )
+    return _autosize_sparse(
+        cfg, getattr(args, "input", []) or [],
+        user_set_capacity=args.sparse_capacity != 1 << 22,
+    )
+
+
+def _autosize_sparse(cfg, inputs, user_set_capacity: bool):
+    """Size the sparse store and raw buffer from the input files.
+
+    Auto-size the sparse store when the user left it at the default:
+    distinct k-mers <= windows <= input bytes; clamp to a ceiling that
+    leaves device memory for the store and its flush working set.
+    Explicit --sparse-capacity always wins; a store overflow still
+    errors with a clear message.  The raw code buffer is pre-sized from
+    input size so the engine allocates once instead of growing through
+    the shape ladder."""
+    total_bytes = 0
+    for path in inputs:
+        if path == "-":
+            continue  # stdin: size unknown, nothing to stat
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"input file not found: {path}")
+        total_bytes += os.path.getsize(path)
+    if (
+        cfg.resolved_table_mode == "sparse"
+        and not user_set_capacity
+        and total_bytes > 0
+    ):
+        need = min(total_bytes, min(4 ** cfg.k, 1 << 28))
+        cap = 1 << 20
+        while cap < need:
+            cap <<= 1
+        if cap != cfg.sparse_capacity:
+            cfg = cfg.replace(sparse_capacity=cap)
+    if cfg.resolved_table_mode == "sparse" and total_bytes > 0:
+        cfg = cfg.replace(sparse_expected_entries=total_bytes)
+    return cfg
+
+
+def _open_out(path):
+    if path == "-":
+        return sys.stdout.buffer, False
+    if path.endswith(".gz"):
+        # gzip-compressed output by extension (mirrors gzip input);
+        # bypasses the O_DIRECT writer: compressed bytes are a
+        # fraction of the spectrum, so the page-dirty cost is too
+        import gzip
+
+        return gzip.open(path, "wb", compresslevel=4), True
+    if os.environ.get("FINDKMER_DIRECT_OUT", "1") == "1":
+        # O_DIRECT writer (utils/directio.py): skips dirtying fresh
+        # page-cache pages; falls back to buffered automatically
+        try:
+            from findkmer_torch.utils.directio import DirectWriter
+
+            return DirectWriter(path), True
+        except Exception:
+            pass
+    return open(path, "wb"), True
+
+
+_SEQ_EXTS = (".fa", ".fasta", ".fna", ".fq", ".fastq", ".txt")
+
+
+def _input_stem(path: str, seen: dict, exts=_SEQ_EXTS) -> str:
+    """Display stem of an input: basename, one (case-insensitive)
+    known extension stripped after any .gz, de-collided with .2/.3/...
+    (the naming convention of --per-input)."""
+    base = os.path.basename(path)
+    if base.endswith(".gz"):
+        base = base[:-3]
+    root, ext = os.path.splitext(base)
+    if ext.lower() in exts:
+        base = root
+    n = seen.get(base, 0) + 1
+    seen[base] = n
+    return base if n == 1 else f"{base}.{n}"
+
+
+def _per_input_name(path: str, seen: dict) -> str:
+    """Output filename for --per-input: input stem + '.tsv'."""
+    return _input_stem(path, seen) + ".tsv"
 
 
 def _refuse_unported(args, cfg) -> None:
@@ -69,7 +244,7 @@ def _timed_chunks(chunks, timers):
 def _count_per_input(args, cfg, device, kernels: dict) -> int:
     """--per-input: one spectrum file per input, written into -o DIR
     (files named <input stem>.tsv, a repeated stem as <stem>.2.tsv)."""
-    from findkmer_tpu import output as output_mod
+    from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
 
     if args.output == "-" or (
@@ -95,7 +270,7 @@ def _count_per_input(args, cfg, device, kernels: dict) -> int:
 def _count_per_record(args, cfg, device, kernels: dict) -> int:
     """--per-record: sectioned output, a '>header' line, then that
     record's spectrum (one section per FASTA record / FASTQ read)."""
-    from findkmer_tpu import output as output_mod
+    from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
 
     stats = pipeline.StreamStats()
@@ -123,10 +298,10 @@ def cmd_count(args, row_sort: str = "auto",
     no flags."""
     import torch
 
-    from findkmer_tpu import output as output_mod
-    from findkmer_tpu.utils.prof import PhaseTimers
+    from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
     from findkmer_torch.device import resolve_device
+    from findkmer_torch.utils.prof import PhaseTimers
 
     if args.log:
         os.environ["FINDKMER_LOGLEVEL"] = args.log
@@ -141,7 +316,7 @@ def cmd_count(args, row_sort: str = "auto",
     encoder = pipeline.host_encoder(cfg.use_native_encode)
     if encoder == "numpy" and cfg.use_native_encode:
         print("findkmer-torch: warning: the C host encoder "
-              "(findkmer_tpu/io/native.py) could not be built with $CC or "
+              "(findkmer_torch/io/native.py) could not be built with $CC or "
               "cc; counting with its numpy fallback (same output, slower "
               "host path)", file=sys.stderr)
     kernels = dict(row_sort=row_sort, dense_kernel=dense_kernel)
@@ -193,7 +368,7 @@ def cmd_count(args, row_sort: str = "auto",
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from findkmer_tpu.version import __version__
+    from findkmer_torch.version import __version__
 
     p = argparse.ArgumentParser(
         prog="findkmer-torch",
@@ -256,7 +431,7 @@ def main(argv=None, *, row_sort: str = "auto",
          dense_kernel: str = "fused") -> int:
     """The CLI.  row_sort and dense_kernel pick the counter's kernels for
     callers in Python (`cmd_count`); they are no flags."""
-    from findkmer_tpu.utils.shmalloc import ensure_shared_alloc
+    from findkmer_torch.utils.shmalloc import ensure_shared_alloc
 
     ensure_shared_alloc()  # before any large host buffer is allocated
     args = build_parser().parse_args(argv)

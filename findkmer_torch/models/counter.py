@@ -55,8 +55,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from findkmer_tpu.config import Config
 from findkmer_torch import table as table_mod
+from findkmer_torch.config import Config
 from findkmer_torch.models import rowstore
 from findkmer_torch.models.rowstore import RowStoreMixin
 from findkmer_torch.ops import compaction
@@ -123,7 +123,7 @@ def ingest(out: torch.Tensor, batch, k: int, canonical: bool, R: int):
 def make_counter(cfg: Config, device: torch.device, row_sort: str = "auto",
                  dense_kernel: str = "fused"):
     """The single-device counter for cfg on `device`."""
-    from findkmer_tpu.utils.shmalloc import ensure_shared_alloc
+    from findkmer_torch.utils.shmalloc import ensure_shared_alloc
 
     ensure_shared_alloc()  # before this run's big host buffers exist
     if cfg.devices != 1:

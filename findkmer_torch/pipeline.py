@@ -1,8 +1,9 @@
 """Streaming batch pipeline of the port: FASTA -> encoded rows -> device.
 
 Counterpart of `findkmer_tpu/pipeline.py`.  The host batchers are the
-JAX package's, carried over unchanged in behaviour (that module imports
-jax, so they cannot be imported from it):
+JAX package's, carried over unchanged in behaviour; the readers, the
+encoder and the loader of the C library they call are the port's own
+copies under `findkmer_torch/io/`:
 
   1. io.fasta streams record chunks; io.encode maps them to uint8 codes.
   2. Records are joined into one virtual code stream with a single INVALID
@@ -30,10 +31,17 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from findkmer_tpu.config import Config
-from findkmer_tpu.io.encode import INVALID, encode_bytes
-from findkmer_tpu.io.fasta import FastaReader
-from findkmer_tpu.utils.malloc_tuning import tune_for_streaming
+from findkmer_torch.config import Config
+from findkmer_torch.io import native as native_mod
+from findkmer_torch.io.encode import INVALID, encode_bytes
+from findkmer_torch.io.fasta import (
+    FastaReader,
+    open_maybe_gzip,
+    pushback_stream,
+)
+from findkmer_torch.io.fastq import FastqReader, sniff_format, sniff_head
+from findkmer_torch.io.sam import BamReader, SamReader
+from findkmer_torch.utils.malloc_tuning import tune_for_streaming
 
 tune_for_streaming()  # keep big freed buffers on the heap (see _BatchEmitter)
 
@@ -105,10 +113,7 @@ class _BatchEmitter:
         self._emitted = 0
         self._shrink_ok = cfg.devices == 1
         if self.pack:
-            from findkmer_tpu.io import native as native_mod
-
             self._native_pack = native_mod.available()
-            self._native_mod = native_mod
             self.R8 = (self.R + 7) // 8 * 8
 
     def emit(self, rows: Optional[int] = None):
@@ -123,7 +128,7 @@ class _BatchEmitter:
         if self.pack:
             # 2-bit + validity-bit device format: 0.375 B/base on the wire
             if self._native_pack:
-                packed, validbits = self._native_mod.pack_rows(work, B, L, R)
+                packed, validbits = native_mod.pack_rows(work, B, L, R)
             else:
                 packed, validbits = _numpy_pack_rows(work, B, L, R, self.R8)
             if halo:
@@ -207,8 +212,6 @@ def _batches_fused(
 
     Output is identical to batches_from_codes(code_stream(...)).
     """
-    from findkmer_tpu.io import native as native_mod
-
     em = _BatchEmitter(cfg, stats)
     halo, need = em.halo, em.need
     for chunk in reader.chunks():
@@ -267,16 +270,70 @@ def _numpy_pack_rows(work, B, L, R, R8):
     return packed, validbits
 
 
+def _fastq_blocks(path, block_bytes: int = 1 << 22):
+    """Offsets-based zero-copy FASTQ block reader (C record scanner,
+    src/native/encode.c fk_fastq_scan): yields (data uint8 array,
+    seq_start, seq_end, rec_start, rec_end) per ~4 MB block: no per-read
+    byte slices, no per-line Python.  Same record contract as FastqReader
+    (strict 4-line, blank lines at header positions, CRLF-stripped
+    sequence spans, errors on wrapped FASTQ).  The port's copy of
+    `findkmer_tpu.filter._fastq_blocks`."""
+    f, own = open_maybe_gzip(path)
+    try:
+        tail = b""
+        eof = False
+        while True:
+            chunks = [tail] if tail else []
+            size = len(tail)
+            while size < block_bytes and not eof:
+                b = f.read(block_bytes)
+                if not b:
+                    eof = True
+                    break
+                chunks.append(b)
+                size += len(b)
+            if eof and size and not (chunks[-1].endswith(b"\n")):
+                chunks.append(b"\n")  # unterminated final line
+            data = b"".join(chunks)
+            if not data:
+                return
+            buf = np.frombuffer(data, np.uint8)
+            seq_s, seq_e, rec_s, rec_e, consumed, err = (
+                native_mod.fastq_scan(buf)
+            )
+            if seq_s.size:
+                yield buf, seq_s, seq_e, rec_s, rec_e
+            if err:
+                raise ValueError(
+                    f"{path}: multi-line FASTQ is not supported "
+                    "(expected @header/seq/+/quality groups)"
+                )
+            if eof:
+                # strip ONLY newline characters: a space-only trailing
+                # line is malformed to the strict line reader
+                # (FastqReader), and the flows must agree on
+                # accept/reject
+                if data[consumed:].strip(b"\r\n"):
+                    raise ValueError(f"{path}: truncated FASTQ record")
+                return
+            if consumed == 0 and len(data) >= block_bytes:
+                # a single record larger than the block: widen and retry
+                tail = data
+                block_bytes *= 2
+                continue
+            tail = data[consumed:]
+    finally:
+        if own:
+            f.close()
+
+
 def _fastq_code_stream(
     path, *, stats: Optional[StreamStats] = None
 ) -> Iterator[np.ndarray]:
     """Offsets-based zero-copy FASTQ -> code stream: the C record scanner
-    (filter._fastq_blocks) yields per-block offset arrays and
+    (_fastq_blocks) yields per-block offset arrays and
     fk_filter_gather_prepare LUT-encodes every read straight into one
     INVALID-prefilled code buffer, separators already in place."""
-    from findkmer_tpu.filter import _fastq_blocks
-    from findkmer_tpu.io import native as native_mod
-
     for data, seq_s, seq_e, rec_s, rec_e in _fastq_blocks(path):
         lens = seq_e - seq_s
         n = int(seq_s.size)
@@ -296,8 +353,6 @@ def _fastq_code_stream(
 def _fastq_fast_ok(path, cfg: Config) -> bool:
     """Gate for the offsets-based FASTQ counting path: real file path,
     FASTQ format, no quality masking, native library built."""
-    from findkmer_tpu.io import native as native_mod
-
     if path == "-" or cfg.min_qual > 0 or not cfg.use_native_encode:
         return False
     if os.environ.get("FINDKMER_FASTQ_FAST", "1") != "1":
@@ -308,8 +363,6 @@ def _fastq_fast_ok(path, cfg: Config) -> bool:
         return True
     if cfg.input_format != "auto":
         return False
-    from findkmer_tpu.io.fastq import sniff_format
-
     try:
         return sniff_format(path) == "fastq"
     except Exception:
@@ -333,10 +386,6 @@ def batches_from_file(
 
 def _open_reader(path, cfg: Config):
     """(reader, fused) for one input path."""
-    from findkmer_tpu.io import native as native_mod
-    from findkmer_tpu.io.fastq import FastqReader, sniff_format, sniff_head
-    from findkmer_tpu.io.sam import BamReader, SamReader
-
     fmt = cfg.input_format
     fused = cfg.use_native_encode and native_mod.available()
     if path == "-":
@@ -345,8 +394,6 @@ def _open_reader(path, cfg: Config):
         # a head block for gzip magic + format sniffing; the head is
         # replayed through a pushback stream.
         import sys
-
-        from findkmer_tpu.io.fasta import pushback_stream
 
         raw = sys.stdin.buffer
         head = raw.read(4096)
@@ -653,7 +700,7 @@ def count_file(
     counted as one input, on `device`.
 
     Returns the finalized spectrum: dense np counts, or sparse (codes
-    uint64, counts int64); formatting lives in findkmer_tpu/output.py.
+    uint64, counts int64); formatting lives in findkmer_torch/output.py.
     "finalize" in `timers` includes the final device drain."""
     counter, state = run_count(path, cfg, device, stats=stats,
                                timers=timers, row_sort=row_sort,
@@ -736,42 +783,11 @@ def per_record_spectra(
         reader.close()
 
 
-def build_native_encoder() -> bool:
-    """Build the C library of findkmer_tpu.io.native where that module
-    looks for it: first as the module builds it (with $CC), then, if that
-    fails, once more with CC=cc for that one call (a $CC that cannot
-    link OpenMP fails the first build).  True when a build succeeded."""
-    from findkmer_tpu.io import native as native_mod
-
-    if native_mod.build():
-        return True
-    old = os.environ.get("CC")
-    os.environ["CC"] = "cc"
-    try:
-        return native_mod.build()
-    finally:
-        if old is None:
-            del os.environ["CC"]
-        else:
-            os.environ["CC"] = old
-
-
 def host_encoder(use_native: bool = True) -> str:
     """Which host encoder the batchers run: "native" (the C library of
-    findkmer_tpu.io.native) or "numpy", its fallback.  Outputs are the
-    same; rates differ about tenfold.
-
-    With use_native (Config.use_native_encode) and no library built yet,
-    this builds it first (`build_native_encoder`; FINDKMER_AUTOBUILD=0
-    turns building off, as it does for that module)."""
-    from findkmer_tpu.io import native as native_mod
-
-    if not use_native:
-        return "numpy"
-    if (
-        not native_mod._lib_path().exists()
-        and os.environ.get("FINDKMER_AUTOBUILD", "1") == "1"
-        and build_native_encoder()
-    ):
-        native_mod._load_attempted = False  # load what was just built
-    return "native" if native_mod.available() else "numpy"
+    findkmer_torch.io.native, which builds it at first use with $CC and
+    then cc unless FINDKMER_AUTOBUILD=0) or "numpy", its fallback.
+    Outputs are the same; rates differ about tenfold."""
+    if use_native and native_mod.available():
+        return "native"
+    return "numpy"

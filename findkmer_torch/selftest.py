@@ -1,10 +1,10 @@
 """`findkmer_torch.cli selftest`: the deployment sanity check of the port.
 
-Counterpart of `findkmer_tpu/selftest.py`, whose jax-free parts it reuses:
-the synthetic input (`_make_input`), the independent byte-at-a-time
-scalar counter (`_scalar_count`), the spectrum-to-dict view
-(`_spectrum_dict`) and the CASES (k=4 dense, k=13 narrow sparse, k=21
-canonical sparse).  Each case is counted end to end on the chosen torch
+Counterpart of `findkmer_tpu/selftest.py`, with its own copies of that
+module's case builders: the synthetic input (`_make_input`), the
+independent byte-at-a-time scalar counter (`_scalar_count`), the
+spectrum-to-dict view (`_spectrum_dict`) and the CASES (k=4 dense, k=13
+narrow sparse, k=21 canonical sparse).  Each case is counted end to end on the chosen torch
 device through `findkmer_torch.pipeline.count_file` and diffed
 bit-exactly against the scalar counter, so a bad install, a kernel that
 miscounts on this card or a broken native library shows up as a FAIL
@@ -17,13 +17,71 @@ import os
 import sys
 import tempfile
 
+from typing import Dict, Iterable, Tuple
+
 import numpy as np
 
-from findkmer_tpu.selftest import (
-    CASES,
-    _make_input,
-    _scalar_count,
-    _spectrum_dict,
+_COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
+
+
+def _scalar_count(seqs: Iterable[str], k: int, canonical: bool
+                  ) -> Dict[str, int]:
+    """Independent reference: dict-of-strings byte-at-a-time counting
+    (uppercase-fold, any non-ACGT byte breaks the window)."""
+    counts: Dict[str, int] = {}
+    for seq in seqs:
+        s = seq.upper()
+        n = len(s)
+        i = 0
+        while i + k <= n:
+            w = s[i:i + k]
+            if any(c not in _COMP for c in w):
+                i += 1
+                continue
+            if canonical:
+                rc = "".join(_COMP[c] for c in reversed(w))
+                if rc < w:
+                    w = rc
+            counts[w] = counts.get(w, 0) + 1
+            i += 1
+    return counts
+
+
+def _spectrum_dict(spectrum, k: int) -> Dict[str, int]:
+    from findkmer_torch.output import codes_to_kmer_bytes
+
+    if isinstance(spectrum, tuple):
+        codes, counts = spectrum
+    else:
+        counts = np.asarray(spectrum)
+        (codes,) = np.nonzero(counts)
+        counts = counts[codes]
+    kmers = codes_to_kmer_bytes(np.asarray(codes), k)
+    return {
+        w.decode(): int(n) for w, n in zip(kmers.tolist(), counts)
+    }
+
+
+def _make_input(rng) -> Tuple[str, list]:
+    bases = np.array(list("ACGTacgt"))
+    recs = []
+    for ln in (4000, 2500):
+        arr = bases[rng.integers(0, 8, ln)].astype("U1")
+        arr[rng.random(ln) < 0.02] = "N"
+        recs.append("".join(arr))
+    # repeat-heavy + homopolymer record: counts far above 1 and a hot
+    # k-mer
+    rep = recs[0][:900]
+    recs.extend([rep] * 3)
+    recs.append("A" * 600)
+    text = "".join(f">r{i}\n{s}\n" for i, s in enumerate(recs))
+    return text, recs
+
+
+CASES = (
+    dict(k=4, canonical=False),    # dense table
+    dict(k=13, canonical=False),   # narrow sparse (int32 codes)
+    dict(k=21, canonical=True),    # wide sparse + canonical fold
 )
 
 

@@ -16,7 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from findkmer_tpu.config import Config
+from findkmer_torch.config import Config
 
 _DTYPES = {"int32": torch.int32, "int64": torch.int64}
 

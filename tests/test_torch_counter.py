@@ -11,14 +11,17 @@ into x64 mode for the whole test process).
 import threading
 
 import jax.numpy as jnp
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from conftest import random_dna
 from findkmer_tpu import pipeline as jax_pipeline
-from findkmer_tpu.config import Config
+from findkmer_tpu.config import Config as JaxConfig
 from findkmer_tpu.models.counter import KmerCounter as JaxCounter
+from findkmer_torch import Config
 from findkmer_torch import pipeline
 from findkmer_torch.models import counter as counter_mod
 from findkmer_torch.models.counter import KmerCounter, make_counter
@@ -26,6 +29,11 @@ from findkmer_torch.table import DenseTable
 from oracle.scalar import count_fasta_file
 
 torch.set_num_threads(1)  # six test workers share the cores
+
+
+def _jax(cfg):
+    """The JAX package's Config with the same fields."""
+    return JaxConfig(**dataclasses.asdict(cfg))
 CPU = torch.device("cpu")
 GEOM = dict(chunk_len=128, batch_rows=4)
 
@@ -48,7 +56,7 @@ def fasta(tmp_path_factory):
 @pytest.mark.parametrize("k", [1, 4, 8, 10])
 def test_count_file_vs_jax_pallas(fasta, k, canonical):
     cfg = Config(k=k, canonical=canonical, hist="pallas", **GEOM)
-    want = np.asarray(jax_pipeline.count_file(fasta, cfg))
+    want = np.asarray(jax_pipeline.count_file(fasta, _jax(cfg)))
     stats = pipeline.StreamStats()
     got = pipeline.count_file(fasta, cfg, CPU, stats=stats)
     assert stats.batches > 1
@@ -63,7 +71,7 @@ def test_count_file_vs_jax_pallas(fasta, k, canonical):
 @pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
 def test_counter_methods_vs_jax(fasta, hist, packed):
     cfg = Config(k=5, hist=hist, packed_h2d=packed, **GEOM)
-    want = np.asarray(jax_pipeline.count_file(fasta, cfg.replace(
+    want = np.asarray(jax_pipeline.count_file(fasta, _jax(cfg).replace(
         hist="scatter")))
     counter = KmerCounter(cfg, CPU)
     state = counter.init_state()
@@ -78,10 +86,10 @@ def test_jax_table_carried_into_the_port(fasta, packed):
     """Count the first half of the batches with the JAX counter, carry its
     dense table into the port with restore_state, finish there."""
     cfg = Config(k=6, canonical=True, packed_h2d=packed, **GEOM)
-    batches = list(jax_pipeline.batches_from_file(fasta, cfg))
+    batches = list(jax_pipeline.batches_from_file(fasta, _jax(cfg)))
     half = len(batches) // 2
     assert 0 < half < len(batches)
-    jc = JaxCounter(cfg)
+    jc = JaxCounter(_jax(cfg))
     jstate = jc.init_state()
     for b in batches[:half]:
         jstate = jc.step(jstate, jc.put_batch(b))
@@ -172,7 +180,7 @@ def jax_dense(fasta):
         if (k, canonical) not in cache:
             cfg = Config(k=k, canonical=canonical, hist="scatter", **GEOM)
             cache[k, canonical] = np.asarray(
-                jax_pipeline.count_file(fasta, cfg))
+                jax_pipeline.count_file(fasta, _jax(cfg)))
         return cache[k, canonical]
 
     return get

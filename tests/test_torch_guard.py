@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: no jax, no silent CPU fallback, no build
-on the CPU path, a clear error without nvcc."""
+"""Guards of the PyTorch port: no jax and nothing of the JAX package, no
+silent CPU fallback, no build on the CPU path, a clear error without
+nvcc, the C host encoder built into the port's own directory."""
 
 import json
 import os
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from findkmer_tpu.config import Config
+from findkmer_torch import Config
 from findkmer_torch import cli as torch_cli
 from findkmer_torch import pipeline
 from findkmer_torch.device import resolve_device
@@ -25,12 +26,14 @@ PORT = REPO / "findkmer_torch"
 
 
 def _without_jax(code, tmp_path):
-    """Run `code` in a fresh interpreter; fail if it fails or jax loaded.
-    -> its stdout."""
+    """Run `code` in a fresh interpreter; fail if it fails, or if jax or
+    any module of the JAX package was loaded.  -> its stdout."""
     code += (
         "\nimport sys\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'jaxlib' not in sys.modules, 'jaxlib was imported'\n"
+        "tpu = [m for m in sys.modules if m.split('.')[0] == 'findkmer_tpu']\n"
+        "assert not tpu, f'the JAX package was imported: {tpu}'\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -40,7 +43,8 @@ def _without_jax(code, tmp_path):
 
 
 def _cli_without_jax(path, out, extra, tmp_path):
-    """Run the port's CLI in a fresh interpreter; fail if jax loaded."""
+    """Run the port's CLI in a fresh interpreter; fail if jax or the JAX
+    package loaded."""
     _without_jax(
         "from findkmer_torch.cli import main\n"
         f"rc = main(['count', '-i', {path!r}, '--device', 'cpu',"
@@ -108,14 +112,14 @@ def test_api_never_imports_jax(fixtures_dir, tmp_path):
 
 
 def test_port_sources_do_not_import_jax():
-    pat = re.compile(r"^\s*(import jax|from jax\b)", re.M)
-    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+    # neither jax nor anything of the JAX package, at module level or
+    # inside a function, not even its jax-free modules: the port keeps its
+    # own copies, and the smoke script drives the port alone
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|findkmer_tpu)\b", re.M)
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 20
+    offenders = [str(p.relative_to(REPO)) for p in sources
                  if pat.search(p.read_text())]
-    # the smoke script drives the port alone: nothing of the JAX package,
-    # not even its jax-free modules, which the port reuses on its behalf
-    tpu = re.compile(r"^\s*(import|from)\s+(jax|findkmer_tpu)\b", re.M)
-    if tpu.search((REPO / "chip_smoke.py").read_text()):
-        offenders.append("chip_smoke.py")
     assert offenders == []
 
 
@@ -201,22 +205,31 @@ def test_cpu_sparse_slice_never_builds(fixtures_dir, monkeypatch):
 
 def test_native_encoder_build_retries_with_cc(tmp_path, monkeypatch):
     """A $CC that cannot build the C host library (as a compiler without
-    OpenMP cannot) gets one retry with CC=cc; $CC is left as it was."""
+    OpenMP cannot) gets one retry with cc; $CC is left as it was.  The
+    library lands in the port's own build directory, and the source's
+    directory gains no file."""
     if shutil.which("cc") is None:
         pytest.skip("no cc on this machine")
-    from findkmer_tpu.io import native
+    from findkmer_torch.io import native
 
-    lib = tmp_path / "libfindkmer_encode.so"
-    monkeypatch.setattr(native, "_lib_path", lambda: lib)
+    assert native.BUILD_DIR == REPO / "build" / "torch_native"
+    assert native.SOURCE == REPO / "src" / "native" / "encode.c"
+    src_before = sorted(p.name for p in native.SOURCE.parent.iterdir())
+    build_dir = tmp_path / "torch_native"
+    monkeypatch.setattr(native, "BUILD_DIR", build_dir)
+    lib = native.lib_path()
+    assert lib.parent == build_dir
+    assert lib.name.startswith("libfindkmer_encode_")
     monkeypatch.setenv("CC", "false")  # a compiler that always fails
-    assert pipeline.build_native_encoder()
-    assert lib.exists()
+    assert native.build()
+    assert [p.name for p in build_dir.iterdir()] == [lib.name]
     assert os.environ["CC"] == "false"
+    assert sorted(p.name for p in native.SOURCE.parent.iterdir()) == src_before
     lib.unlink()
     monkeypatch.delenv("CC")
-    monkeypatch.setattr(native, "build", lambda quiet=True: False)
-    assert not pipeline.build_native_encoder()  # no compiler works
-    assert "CC" not in os.environ
+    monkeypatch.setattr(native, "_compile", lambda cc, out, quiet: False)
+    assert not native.build()  # no compiler works
+    assert "CC" not in os.environ and not lib.exists()
 
 
 def test_host_encoder_warns_once_without_a_compiler(fixtures_dir, tmp_path,

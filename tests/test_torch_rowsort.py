@@ -3,8 +3,10 @@ on the CPU, and the kernel's compare-exchange network.
 
 The kernel itself runs only on a CUDA card (the `cuda` tests at the end;
 `chip_smoke.py` holds it against the plain version at the production
-shapes).  Here its network is replayed in numpy, stage by stage with the
-index arithmetic of `csrc/rowsort.cu`, including the slots past C that
+shapes).  Here its schedule is replayed in numpy, phase by phase with the
+index arithmetic of `csrc/rowsort.cu`: the home layout's register and
+shuffle stages, the column layouts between shared-memory transposes, the
+global passes of rows longer than a tile, including the slots past C that
 act as +infinity; keys are integers, so every check is exact.
 """
 
@@ -66,47 +68,189 @@ def test_sort_rows_reference_vs_numpy(kd, case):
         np.testing.assert_array_equal(k_only.numpy(), np.sort(keys, axis=1))
 
 
-def _network(keys, vals):
-    """The kernel's stages in order, in numpy, on copies.
+# ---- the kernel's schedule, replayed ----------------------------------------
+#
+# `csrc/rowsort.cu` holds 8 slots a thread in registers and names layouts:
+# which slot register r of thread t holds.  The functions below repeat its
+# index arithmetic (same names, same formulas); `_tile_schedule` lists the
+# kernel's phases in order, each stage as the partner arithmetic the kernel
+# uses there (a register of the same thread, or a register of the lane
+# `lane ^ lmask`), and `_stage_pairs` turns a stage into (lower slot, upper
+# slot) pairs through the layout.  The tests check that these pairs are the
+# network's, that every slot has exactly one owner and one partner per stage,
+# and that running them sorts.
 
-    Merge size s: a flip stage (i against its mirror in the s-block),
-    then half-cleaners at strides s/4 .. 1; smaller key to the lower
-    index; pairs reaching past C skipped.  A row longer than the shared
-    tile runs the same stages in the same order (strides >= tile as
-    global passes, the rest in the tile kernel).  Within one stage the
-    pairs are disjoint, so a stage applies as one vector step."""
-    keys, vals = keys.copy(), vals.copy()
-    G, C = keys.shape
-    P = 1 << max(C - 1, 0).bit_length()
-    t = np.arange(P // 2)
+LOG_E = 3
+E = 1 << LOG_E
+LOG_WARP = 5 + LOG_E
+MAX_LOG_TILE = 12
+SEAMS = [1, 2, 7, 8, 9, 255, 256, 257, 1023, 1025, 2047, 2049, 4096, 4097]
+
+
+def flip_rmask(L, LV):
+    vb = min(L, LV)
+    qb = L - LV - 5 if L > LV + 5 else 0
+    return ((1 << vb) - 1) | (((1 << qb) - 1) << LV)
+
+
+def flip_lmask(L, LV):
+    lb = 0 if L <= LV else min(L - LV, 5)
+    return (1 << lb) - 1
+
+
+def stride_rmask(B, LV):
+    return 1 << B if B < LV else (1 << (B - 5) if B >= LV + 5 else 0)
+
+
+def stride_lmask(B, LV):
+    return 1 << (B - LV) if LV <= B < LV + 5 else 0
+
+
+def home_slot(t, r, LV):
+    return (((t >> 5) << LOG_WARP) | ((r >> LV) << (5 + LV))
+            | ((t & 31) << LV) | (r & ((1 << LV) - 1)))
+
+
+def col_slot(t, r, LB, mirror):
+    low_mask = (1 << LB) - 1
+    low = t & low_mask
+    if mirror:
+        low = np.where(r >> (LOG_E - 1), ~low & low_mask, low)
+    return ((t >> LB) << (LB + LOG_E)) | (r << LB) | low
+
+
+def _tile_schedule(log_t, LV, merge=False):
+    """The phases of sort_small (log_t == 8: a warp's 256 slots, whatever
+    the row's length) and sort_tiles (log_t >= 9) as
+    (layout, stages): layout ("home",) or ("col", LB, mirror); a stage is
+    (rmask, lmask, top, pairs of the network it must realise)."""
+    def home_strides(B):
+        return [(stride_rmask(b, LV), stride_lmask(b, LV), b, ("stride", b))
+                for b in range(B, -1, -1)]
+
+    def wide_strides(B):
+        out = []
+        while B >= LOG_WARP:
+            LB = B - LOG_E + 1
+            LO = max(LB, LOG_WARP)
+            out.append((("col", LB, False),
+                        [(1 << (b - LB), 0, b, ("stride", b))
+                         for b in range(B, LO - 1, -1)]))
+            B = LO - 1
+        return out
+
+    if merge:
+        return wide_strides(log_t - 1) + [(("home",),
+                                           home_strides(LOG_WARP - 1))]
     stages = []
+    for L in range(1, LOG_WARP + 1):
+        stages.append((flip_rmask(L, LV), flip_lmask(L, LV), L - 1,
+                       ("flip", L)))
+        stages += home_strides(L - 2)
+    phases = [(("home",), stages)]
+    for L in range(LOG_WARP + 1, log_t + 1):
+        LB = L - LOG_E
+        LO = max(LB, LOG_WARP)
+        phases.append((("col", LB, True),
+                       [(E - 1, 0, L - 1, ("flip", L))]
+                       + [(1 << (b - LB), 0, b, ("stride", b))
+                          for b in range(L - 2, LO - 1, -1)]))
+        phases += wide_strides(LO - 1)
+        phases.append((("home",), home_strides(LOG_WARP - 1)))
+    return phases
 
-    def flip(size):
-        h = size // 2
-        base = (t // h) * size
-        return base + (t & (h - 1)), base + size - 1 - (t & (h - 1))
 
-    def half(j):
-        i = 2 * t - (t & (j - 1))
-        return i, i + j
+def _stage_pairs(layout, stage, log_t, LV):
+    """(lower slots, upper slots) of one stage, through the kernel's
+    partner arithmetic, with the checks of ownership."""
+    rmask, lmask, top, want = stage
+    n_threads = 1 << log_t >> LOG_E
+    t = np.arange(n_threads)[:, None]
+    r = np.arange(E)[None, :]
+    if layout[0] == "home":
+        slot = home_slot(t, r, LV)
+        partner = home_slot(t ^ lmask, r ^ rmask, LV)
+        assert lmask < 32  # the partner is a lane of the same warp
+        if LV <= top < LV + 5:
+            lower = np.broadcast_to(((t & 31) & (1 << (top - LV))) == 0,
+                                    slot.shape)
+        else:
+            top_reg = 1 << top if top < LV else 1 << (top - 5)
+            lower = np.broadcast_to((r & top_reg) == 0, slot.shape)
+        if lmask == 0:  # register pairs: the lower register is the smaller
+            lower = np.broadcast_to((r ^ rmask) > r, slot.shape)
+    else:
+        _, LB, mirror = layout
+        assert lmask == 0  # column stages never leave the thread
+        slot = col_slot(t, r, LB, mirror)
+        partner = col_slot(t, r ^ rmask, LB, mirror)
+        lower = np.broadcast_to((r ^ rmask) > r, slot.shape)
+    span = n_threads * E
+    # every slot has exactly one owner, and its partner's partner is itself
+    assert sorted(slot.ravel().tolist()) == list(range(span))
+    back = np.empty(span, np.int64)
+    back[slot.ravel()] = partner.ravel()
+    assert np.array_equal(back[back], np.arange(span))
+    lo, hi = slot[lower], partner[lower]
+    assert lo.size == span // 2 and np.all(lo < hi)
+    kind, x = want
+    flipped = lo ^ ((1 << x) - 1) if kind == "flip" else lo ^ (1 << x)
+    assert np.array_equal(hi, flipped)
+    return lo, hi
 
-    size = 2
-    while size <= P:
-        stages.append(flip(size))
-        j = size // 4
-        while j >= 1:
-            stages.append(half(j))
-            j //= 2
-        size *= 2
-    for i, p in stages:
-        m = p < C
-        i, p = i[m], p[m]
-        a, b = keys[:, i], keys[:, p]
-        swap = b < a
-        keys[:, i], keys[:, p] = np.where(swap, b, a), np.where(swap, a, b)
-        va, vb = vals[:, i], vals[:, p]
-        vals[:, i], vals[:, p] = np.where(swap, vb, va), np.where(swap, va, vb)
-    return keys, vals
+
+def _apply(keys, vals, lo, hi, whole_pair=False):
+    """One stage as a vector step: the pairs are disjoint; swap only when
+    the upper key is strictly smaller.  `whole_pair`: an exchange between
+    two lanes, which orders by (key, payload as unsigned) so that both
+    lanes decide alike on equal keys."""
+    a, b = keys[:, lo], keys[:, hi]
+    va, vb = vals[:, lo], vals[:, hi]
+    swap = b < a
+    if whole_pair:
+        unsigned = np.dtype(f"u{vals.dtype.itemsize}")
+        swap |= (b == a) & (vb.view(unsigned) < va.view(unsigned))
+    keys[:, lo], keys[:, hi] = np.where(swap, b, a), np.where(swap, a, b)
+    vals[:, lo], vals[:, hi] = np.where(swap, vb, va), np.where(swap, va, vb)
+
+
+def _network(keys, vals, LV=1):
+    """The kernel's whole schedule on copies, in numpy: slots past C hold
+    the key type's maximum beside the largest payload (and never move);
+    rows longer than a tile run
+    the tiles, then per merge size the global passes and the tiles' MERGE
+    form.  -> (keys, vals, transposes of the first tile sort)."""
+    G, C = keys.shape
+    # a row of up to 256 slots is sorted as a warp's 256
+    log_p = max(max(C - 1, 0).bit_length(), LOG_WARP)
+    P = 1 << log_p
+    pk = np.full((G, P), np.iinfo(keys.dtype).max, keys.dtype)
+    pv = np.full((G, P), -1, vals.dtype)
+    pk[:, :C], pv[:, :C] = keys, vals
+    log_t = min(log_p, MAX_LOG_TILE)
+    tile = 1 << log_t
+
+    def run_tiles(merge):
+        phases = _tile_schedule(log_t, LV, merge)
+        for t0 in range(0, P, tile):
+            for layout, stages in phases:
+                for stage in stages:
+                    lo, hi = _stage_pairs(layout, stage, log_t, LV)
+                    _apply(pk, pv, lo + t0, hi + t0, whole_pair=stage[1] != 0)
+        return sum(1 for a, b in zip(phases, phases[1:]) if a[0] != b[0])
+
+    transposes = run_tiles(False)
+    i = np.arange(P)
+    for L in range(log_t + 1, log_p + 1):  # global passes, then MERGE tiles
+        for b in [None] + list(range(L - 2, log_t - 1, -1)):
+            p = i ^ ((1 << L) - 1) if b is None else i ^ (1 << b)
+            m = (i < p) & (p < C)  # a pair reaching past C is skipped
+            _apply(pk, pv, i[m], p[m])
+        run_tiles(True)
+    # padding never moved
+    assert np.all(pk[:, C:] == np.iinfo(keys.dtype).max)
+    assert np.all(pv[:, C:] == -1)
+    return pk[:, :C], pv[:, :C], transposes
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -114,9 +258,69 @@ def test_kernel_network_sorts_any_length(case):
     for shape in SHAPES + [(1, 4097), (3, 300)]:
         keys = _keys(shape, np.int64, case, seed=shape[1])
         vals = np.arange(keys.size, dtype=np.int64).reshape(shape)
-        gk, gv = _network(keys, vals)
+        gk, gv, _ = _network(keys, vals)
         _pairs_equal(gk, gv, np.sort(keys, axis=1),
                      np.take_along_axis(vals, np.argsort(keys, axis=1), 1))
+
+
+@pytest.mark.parametrize("C", SEAMS)
+@pytest.mark.parametrize("kd", [np.int32, np.int64])
+def test_kernel_schedule_sorts_at_every_seam(kd, C):
+    """The register / shuffle / transpose schedule, with each key width's
+    own home layout (4 or 2 slots to a 16-byte chunk), sorts rows of every
+    length at a seam of the kernel, pairs kept, padding unmoved."""
+    LV = 2 if kd == np.int32 else 1
+    for case in ("random", "mixed", "reversed"):
+        keys = _keys((3, C), kd, case, seed=C)
+        vals = np.arange(keys.size, dtype=np.int64).reshape(keys.shape)
+        gk, gv, _ = _network(keys, vals, LV)
+        _pairs_equal(gk, gv, np.sort(keys, axis=1),
+                     np.take_along_axis(vals, np.argsort(keys, axis=1), 1))
+
+
+@pytest.mark.parametrize("LV", [1, 2], ids=["int64", "int32"])
+@pytest.mark.parametrize("log_t", range(LOG_WARP, MAX_LOG_TILE + 1))
+def test_kernel_schedule_is_the_bitonic_network(log_t, LV):
+    """Stage by stage the schedule is the direction-free bitonic network:
+    flip(2^L) then strides 2^(L-2) .. 1 for L = 1 .. log_t, every slot
+    owned once and paired once per stage (`_stage_pairs` asserts it), home
+    stages inside a warp, column stages inside a thread; the MERGE form is
+    the strides tile/2 .. 1."""
+    def names(phases):
+        return [st[3] for _, stages in phases for st in stages]
+
+    phases = _tile_schedule(log_t, LV)
+    for layout, stages in phases:
+        for stage in stages:
+            _stage_pairs(layout, stage, log_t, LV)
+    want = []
+    for L in range(1, log_t + 1):
+        want += [("flip", L)] + [("stride", b) for b in range(L - 2, -1, -1)]
+    assert names(phases) == want
+    assert len(want) == log_t * (log_t + 1) // 2
+    if log_t > LOG_WARP:
+        merge = _tile_schedule(log_t, LV, merge=True)
+        for layout, stages in merge:
+            for stage in stages:
+                _stage_pairs(layout, stage, log_t, LV)
+        assert names(merge) == [("stride", b)
+                                for b in range(log_t - 1, -1, -1)]
+
+
+@pytest.mark.parametrize("log_t,transposes,wide_stages", [
+    (8, 0, 0), (9, 2, 1), (10, 4, 3), (11, 6, 6), (12, 9, 10),
+])
+def test_kernel_schedule_barriers(log_t, transposes, wide_stages):
+    """One barrier per transpose, not per stage: 4 transposes for the
+    55 stages of a 1024-slot row, 6 for the 66 of a 2048-slot one; only the
+    stages that cross warps (flip and strides >= 256 of merge sizes >= 512)
+    run in column layouts."""
+    phases = _tile_schedule(log_t, 1)
+    assert sum(1 for a, b in zip(phases, phases[1:])
+               if a[0] != b[0]) == transposes
+    assert phases[0][0] == ("home",) and phases[-1][0] == ("home",)
+    assert sum(len(stages) for layout, stages in phases
+               if layout[0] == "col") == wide_stages
 
 
 @pytest.mark.parametrize("vd", [None, torch.int32, torch.int64])

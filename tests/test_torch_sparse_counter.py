@@ -9,21 +9,29 @@ int64 counts are held to the oracle, not to a JAX int64 counter (that
 would switch jax into x64 mode for the whole test process).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from conftest import random_dna
 from findkmer_tpu import pipeline as jax_pipeline
-from findkmer_tpu.config import Config
+from findkmer_tpu.config import Config as JaxConfig
 from findkmer_tpu.models.counter import KmerCounter as JaxCounter
 from findkmer_tpu.ops.window import str_to_code
+from findkmer_torch import Config
 from findkmer_torch import pipeline
 from findkmer_torch.models.counter import KmerCounter, make_counter
 from findkmer_torch.table import SparseTable
 from oracle.scalar import count_fasta_file
 
 torch.set_num_threads(1)  # six test workers share the cores
+
+
+def _jax(cfg):
+    """The JAX package's Config with the same fields."""
+    return JaxConfig(**dataclasses.asdict(cfg))
 CPU = torch.device("cpu")
 SPARSE_KS = [11, 15, 16, 21, 23, 24, 28, 29, 31]
 # 4 x 128 windows a batch; the raw buffer holds 4096 slots (the ladder
@@ -77,7 +85,7 @@ def _assert_spectrum(got, want):
 def test_sparse_count_file_vs_jax(fasta, k, canonical):
     cfg = Config(k=k, canonical=canonical, **GEOM)
     assert cfg.resolved_table_mode == "sparse"
-    want = jax_pipeline.count_file(fasta, cfg)
+    want = jax_pipeline.count_file(fasta, _jax(cfg))
     counter, state = pipeline.run_count(fasta, cfg, CPU)
     # a count-carrying compaction ran before the finalize: its store has
     # more columns than the raw buffer's share of a row
@@ -94,7 +102,7 @@ def test_sparse_counter_steps_vs_jax(fasta, packed, row_sort):
     choice (on the CPU all of them run the plain sort), finalize_chunks
     concatenating to finalize, table_state restoring into a new counter."""
     cfg = Config(k=21, canonical=True, packed_h2d=packed, **GEOM)
-    want = jax_pipeline.count_file(fasta, cfg)
+    want = jax_pipeline.count_file(fasta, _jax(cfg))
     counter = KmerCounter(cfg, CPU, row_sort=row_sort)
     assert counter._plain_sort == (row_sort != "kernel")
     state = counter.init_state()
@@ -135,7 +143,7 @@ def test_dedup_path_vs_jax(repeats, k):
     n_distinct = len(count_fasta_file(repeats, k))
     cfg = Config(k=k, chunk_len=64, batch_rows=2, sparse_compact_entries=256,
                  sparse_capacity=n_distinct + 3)
-    want = jax_pipeline.count_file(repeats, cfg)
+    want = jax_pipeline.count_file(repeats, _jax(cfg))
     counter = make_counter(cfg, CPU)
     calls = []
     dedup = counter._dedup_state
@@ -152,7 +160,7 @@ def test_dedup_path_vs_jax(repeats, k):
 def test_capacity_error_text_matches_jax(fasta):
     cfg = Config(k=19, **dict(GEOM, sparse_capacity=300))
     with pytest.raises(RuntimeError) as jerr:
-        jax_pipeline.count_file(fasta, cfg)
+        jax_pipeline.count_file(fasta, _jax(cfg))
     with pytest.raises(RuntimeError) as terr:
         pipeline.count_file(fasta, cfg, CPU)
     assert "sparse_capacity" in str(terr.value)
@@ -190,7 +198,7 @@ def test_poly_t_record(tmp_path, k):
     cfg = Config(k=k, **GEOM)
     got = pipeline.count_file(str(path), cfg, CPU)
     _assert_spectrum(got, (np.array([4 ** k - 1]), np.array([50 - k + 1])))
-    _assert_spectrum(got, jax_pipeline.count_file(str(path), cfg))
+    _assert_spectrum(got, jax_pipeline.count_file(str(path), _jax(cfg)))
 
 
 @pytest.mark.parametrize("k, canonical", [(13, False), (21, True),
@@ -199,9 +207,9 @@ def test_jax_table_carried_into_the_port(fasta, k, canonical):
     """Count the first half of the batches with the JAX counter, carry its
     sparse table into the port with restore_state, finish there."""
     cfg = Config(k=k, canonical=canonical, **GEOM)
-    batches = list(jax_pipeline.batches_from_file(fasta, cfg))
+    batches = list(jax_pipeline.batches_from_file(fasta, _jax(cfg)))
     half = len(batches) // 2
-    jc = JaxCounter(cfg)
+    jc = JaxCounter(_jax(cfg))
     jstate = jc.init_state()
     for b in batches[:half]:
         jstate = jc.step(jstate, jc.put_batch(b))
@@ -212,7 +220,7 @@ def test_jax_table_carried_into_the_port(fasta, k, canonical):
     assert state.store[0].dtype == (torch.int32 if k <= 15 else torch.int64)
     for b in batches[half:]:
         state = tc.step(state, tc.put_batch(b))
-    _assert_spectrum(tc.finalize(state), jax_pipeline.count_file(fasta, cfg))
+    _assert_spectrum(tc.finalize(state), jax_pipeline.count_file(fasta, _jax(cfg)))
 
 
 def test_restore_state_checks_k(fasta):

@@ -7,19 +7,27 @@ validity and unpacked rows are integers: they must agree exactly.
 """
 
 import jax.numpy as jnp
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from findkmer_tpu import pipeline as jax_pipeline
-from findkmer_tpu.config import Config
+from findkmer_tpu.config import Config as JaxConfig
 from findkmer_tpu.ops import window as jw
+from findkmer_torch import Config
 from findkmer_torch.ops import window as tw
 
 SPARSE_KS = [11, 15, 16, 21, 23, 24, 28, 29, 31]
 JAX_SENT = 0xFFFFFFFF
 
 torch.set_num_threads(1)  # six test workers share the cores
+
+
+def _jax(cfg):
+    """The JAX package's Config with the same fields."""
+    return JaxConfig(**dataclasses.asdict(cfg))
 
 
 def _batches(seed, k, packed, L=61, B=3, n=700):
@@ -29,7 +37,7 @@ def _batches(seed, k, packed, L=61, B=3, n=700):
     codes[rng.random(n) < 0.05] = 4
     codes[100:110] = 4
     cfg = Config(k=k, chunk_len=L, batch_rows=B, packed_h2d=packed)
-    return cfg, list(jax_pipeline.batches_from_codes(iter([codes]), cfg))
+    return cfg, list(jax_pipeline.batches_from_codes(iter([codes]), _jax(cfg)))
 
 
 def _as_torch(batch):
