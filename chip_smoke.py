@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--only rowsort]
+    python3 chip_smoke.py [--seed N] [--profile] [--only rowsort|window]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
 sm_90a) and nvcc.  Each phase prints one line; any failure raises, so the
@@ -13,12 +13,14 @@ exit code is non-zero and the final ok-line is not printed.
      which must be the C one ("native"): its numpy fallback gives the
      same output about ten times slower
   3. K1 (histogram) vs its plain twin on the card, exact equality: k in
-     {1, 4, 6, 7, 8, 10}, both of the kernel's histograms (shared memory
-     and global atomics) where k <= 6; random codes (~80% valid), one hot
-     code, all invalid; shapes (3, 1000) and the production (1024, 65536).
-     Then timing at the production shape, random codes 80% and 98% valid,
-     k in {4, 6, 8, 10}: median CUDA-event times of the kernel (both
-     histograms for k <= 6), of the plain scatter histogram (`index_add_`
+     {1, 4, 6, 7, 8, 9, 10}, both of the kernel's histograms (block-
+     private bins in shared memory and global atomics) where k <= 9, and
+     adding into a filled table in place; random codes (~80% valid), one
+     hot code, all invalid; shapes (3, 1000) and the production
+     (1024, 65536).  Then timing at the production shape, random codes
+     80% and 98% valid, k in {4, 6, 7, 8, 9, 10}: median CUDA-event times
+     of the kernel (both histograms for k <= 9), of the plain scatter
+     histogram (`index_add_`
      into a trash bin, no host sync: the `plain_ms` baseline, at 98%
      valid), of that one `index_add_` call alone on indices prepared
      beforehand (`library_ms`) and of the twin (`bincount(codes[valid])`,
@@ -30,12 +32,21 @@ exit code is non-zero and the final ok-line is not printed.
      ~2% invalid bytes (INVALID and 5..255), all invalid, poly-A (one hot
      bin), and rows of exactly k bases; shapes (3, 1000 + k - 1),
      (5, 1003) (a row length that is no multiple of 8) and the
-     production (1024, 65536 + k - 1).  Then the median CUDA-event ms at
-     the production shape, 98% of the windows valid (a genome batch's
-     share), k in {4, 6, 8, 10}, timed in turn:
-     K2 from the wire, K2 from rows, the two-stage path (unpack, plain
-     extraction, K1) and the plain version (unpack, extraction, the
-     sync-free `index_add_` scatter: `plain_ms`)
+     production (1024, 65536 + k - 1); every case also by the bins the
+     wrapper would not pick for its size, and adding into a filled int32
+     table in place.  Then the median CUDA-event ms at the production
+     shape, 98% of the windows valid (a genome batch's share), k in
+     {4, 6, 7, 8, 9, 10}, timed in turn: K2 from the wire, K2 from rows,
+     K2 from the wire on global bins (k = 7..9), the two-stage path
+     (unpack, plain extraction, K1) and the plain version (unpack,
+     extraction, the sync-free `index_add_` scatter: `plain_ms`), and at
+     k = 8 K2 on a poly-A batch (one hot bin) and on an all-invalid one.
+     Then K2 with private and with global bins on both sides of the
+     wrappers' choice between them (1, 16, 64, 256 production rows at
+     k = 7, 8, 9; one record of 5000 bases at k = 8), and the card's rate
+     of integer atomic adds to random words of a 4^k-bin table (k = 6, 8,
+     10) in shared memory and in the L2 (`csrc/atomic_rate.cu`): what one
+     atomic a window costs, beside the byte bound
   5. K3 (row sort) vs `sort_rows_reference` (torch.sort + gather) on the
      card, exact: keys equal, (key, count) pairs equal as multisets per
      row; cases random, all equal, all sentinel, sorted, reversed, and
@@ -87,9 +98,12 @@ over four steps of a staged k=8 batch on the kernel path, with the
 device time of each kernel summed by name and the share of the steps'
 wall time the device was busy.
 
-With --only rowsort the script stops after phase 5 (and first prints
+With --only rowsort the script runs phases 1, 2 and 5 (and first prints
 what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
-the instructions of its production kernels by opcode): the quick check of an edit to that kernel.  It prints no summary and no ok-line.
+the instructions of its production kernels by opcode); with --only window
+phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
+the quick check of an edit to those kernels.  Either prints no summary
+and no ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
 launches on the main paths, its ms beside the plain version's, the one
@@ -102,6 +116,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import hashlib
 import io
 import json
@@ -129,12 +144,14 @@ from findkmer_torch.ops.cuda.histogram_kernel import (
     SHARED_MAX_K,
     histogram_cuda,
     histogram_reference,
+    private_bins,
 )
 from findkmer_torch.ops.cuda.rowsort_kernel import (
     sort_rows_cuda,
     sort_rows_reference,
 )
 from findkmer_torch.ops.cuda.window_histogram_kernel import (
+    add_window_counts_cuda,
     fused_window_histogram_cuda,
     fused_window_histogram_packed_cuda,
     fused_window_histogram_packed_reference,
@@ -145,14 +162,20 @@ from oracle.scalar import count_fasta_file, spectrum_lines
 REPO = os.path.dirname(os.path.abspath(__file__))
 PROD_SHAPE = (1024, 65536)
 GENOME_BASES = 256 << 20
-KERNEL_KS = (1, 4, 6, 7, 8, 10)
-TIMED_KS = (4, 6, 8, 10)
+KERNEL_KS = (1, 4, 6, 7, 8, 9, 10)
+TIMED_KS = (4, 6, 7, 8, 9, 10)
 # the check's share, and about that of a genome batch (N runs, IUPAC
 # codes, record separators; the device_step line reports the real one)
 TIMED_VALID = (0.8, 0.98)
 STEP_KS = (8, 10)
 K2_KS = (1, 2, 4, 5, 6, 7, 8, 9, 10)
 K2_CASES = ("random", "invalid", "poly_a")
+# rows of 65536 + k - 1 bases on both sides of the wrappers' choice between
+# block-private and global bins, and one record of 5000 bases
+THRESHOLD_ROWS = (1, 16, 64, 256)
+RECORD_BASES = 5000
+# table sizes of the atomic-rate yardstick
+ATOMIC_KS = (6, 8, 10)
 # the dense step's three routes: (name, --hist, dense_kernel)
 DENSE_ROUTES = (("fused", "auto", "fused"),
                 ("two_stage", "auto", "two_stage"),
@@ -238,18 +261,31 @@ SORT_SASS = {"raw_k21": "sort_tilesIlNS_5NoValELi10ELb0",
              "raw_k15": "sort_tilesIiNS_5NoValELi10ELb0"}
 
 
-def phase_sass() -> None:
-    """Instructions of the row sort's production kernels in the built
-    library, counted by opcode from `cuobjdump -sass` (the kernels are
-    straight-line code, so this is what a thread executes): how many go to
-    the integer pipe (compares, selects, logic), how many are shuffles."""
+# K2's kernels by a piece of their mangled names: source of bases, bins,
+# canonical.  A thread runs the body once for each run of 64 bases.
+WINDOW_SASS = {
+    "wire_word": "window_histINS_12PackedSourceENS_8WordBinsELb0",
+    "wire_word_canonical": "window_histINS_12PackedSourceENS_8WordBinsELb1",
+    "wire_half": "window_histINS_12PackedSourceENS_8HalfBinsELb0",
+    "wire_global": "window_histINS_12PackedSourceENS_10GlobalBinsELb0",
+    "rows_word": "window_histINS_10RowsSourceENS_8WordBinsELb0",
+}
+
+
+def phase_sass(source: str = "rowsort.cu", wanted: dict = SORT_SASS) -> None:
+    """Instructions of `wanted` kernels in the built library, counted by
+    opcode from `cuobjdump -sass`: how many go to the integer pipe
+    (compares, selects, shifts, logic), how many are shuffles or atomics.
+    The row sort's kernels are straight-line code, so the count is what a
+    thread executes; K2's are one pass of the loop over a thread's runs of
+    64 bases."""
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     res = subprocess.run([str(cuobjdump), "-sass", str(_build.build())],
                          capture_output=True, text=True, check=True)
     counts = {}
     for body in res.stdout.split("Function : ")[1:]:
         name = body.split("\n", 1)[0]
-        shape = next((k for k, v in SORT_SASS.items() if v in name), None)
+        shape = next((k for k, v in wanted.items() if v in name), None)
         if shape is None:
             continue
         ops = collections.Counter(
@@ -258,9 +294,9 @@ def phase_sass() -> None:
                 body))
         counts[shape] = {"total": sum(ops.values()),
                          **dict(ops.most_common(12))}
-    if set(counts) != set(SORT_SASS):
+    if set(counts) != set(wanted):
         raise AssertionError(f"sass: found only {sorted(counts)}")
-    say("sass", source="rowsort.cu", per_thread=counts)
+    say("sass", source=source, per_thread=counts)
 
 
 def phase_build() -> None:
@@ -343,6 +379,14 @@ def phase_kernel(seed: int) -> int:
                         got, want, f"kernel (shared={shared}) != twin at "
                         f"k={k} shape={shape} case={name}"))
                     n_cases += 1
+                # the kernel adds into a table it is given
+                table = torch.full_like(want, 7)
+                got = histogram_cuda(codes, valid, k, out=table)
+                if got is not table:
+                    raise AssertionError("histogram_cuda(out=) made a copy")
+                max_err = max(max_err, _check_equal(
+                    got, want + 7, f"kernel (out=) != twin + table at k={k} "
+                    f"shape={shape} case={name}"))
     say("kernel_vs_twin", cases=n_cases, max_abs_err=max_err)
     return max_err
 
@@ -385,6 +429,8 @@ def phase_timing(seed: int) -> dict:
             if k <= SHARED_MAX_K:
                 fns["kernel_global"] = lambda: histogram_cuda(
                     codes, valid, k, shared=False)
+                _check_equal(fns["kernel_global"](), want,
+                             f"global kernel != twin at k={k} valid={share}")
             timing[f"k{k}_valid{share}"] = {
                 **_time_alternating(fns),
                 # codes and the validity mask in, the table out; one add
@@ -468,6 +514,21 @@ def phase_window_kernel(seed: int) -> int:
                         packed, validbits, k, canonical, R), want,
                     f"K2 (wire) != plain at {what}"))
                 n_cases += 2
+                # the bins the wrapper did not choose for this size
+                other = not private_bins(k, shape[0] * (R - k + 1))
+                if not other or k <= SHARED_MAX_K:
+                    _check_equal(fused_window_histogram_cuda(
+                        rows, k, canonical, private=other), want,
+                        f"K2 (rows, private={other}) != plain at {what}")
+                    _check_equal(fused_window_histogram_packed_cuda(
+                        packed, validbits, k, canonical, R, private=other),
+                        want, f"K2 (wire, private={other}) != plain at {what}")
+                # the kernel adds into an int32 table it is given
+                for batch in (rows, (packed, validbits)):
+                    table = torch.full_like(want, 7)
+                    _check_equal(add_window_counts_cuda(
+                        batch, table, k, canonical, R), want + 7,
+                        f"K2 into a table != plain + table at {what}")
             del rows, packed, validbits
         torch.cuda.empty_cache()
     say("window_kernel_vs_plain", cases=n_cases, max_abs_err=max_err)
@@ -505,9 +566,19 @@ def phase_window_timing(seed: int) -> dict:
             "kernel_rows": lambda: fused_window_histogram_cuda(rows, k),
             "two_stage": lambda: histogram_cuda(*extract(), k),
         }
+        if SHARED_MAX_K >= k > 6:  # the new loads on the old binning
+            fns["kernel_global"] = lambda: fused_window_histogram_packed_cuda(
+                packed, validbits, k, False, R, private=False)
         want = fused_window_histogram_reference(rows, k)
         for name, fn in fns.items():
             _check_equal(fn(), want, f"{name} != plain version at k={k}")
+        if k == 8:  # a hot bin, and no window at all
+            wires = {case: _pack_wire(_k2_rows(case, shape, gen))
+                     for case in ("poly_a", "invalid")}
+            for case, (p, v) in wires.items():
+                fns[f"kernel_{case}"] = (
+                    lambda p=p, v=v: fused_window_histogram_packed_cuda(
+                        p, v, k, False, R))
         timing[f"k{k}"] = {
             **_time_alternating(fns),
             # the wire in, the table out; one add per valid window
@@ -519,6 +590,83 @@ def phase_window_timing(seed: int) -> dict:
     say("window_kernel_timing", shape=[PROD_SHAPE[0], "65536+k-1"],
         valid_share=shares, timing=timing)
     return timing
+
+
+def phase_window_threshold(seed: int) -> None:
+    """K2 from the wire with block-private and with global bins, timed in
+    turn on both sides of the wrappers' choice (`private_bins`): batches
+    of THRESHOLD_ROWS production rows at k = 7, 8, 9, and one record of
+    RECORD_BASES bases at k = 8."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    lines = []
+    shapes = [(k, (n, PROD_SHAPE[1] + k - 1))
+              for k in (7, 8, 9) if k <= SHARED_MAX_K for n in THRESHOLD_ROWS]
+    shapes.append((8, (1, RECORD_BASES)))
+    for k, shape in shapes:
+        R = shape[1]
+        rows = _k2_rows("random", shape, gen)
+        packed, validbits = _pack_wire(rows)
+        want = fused_window_histogram_reference(rows, k)
+        fns = {
+            name: (lambda private=private: fused_window_histogram_packed_cuda(
+                packed, validbits, k, False, R, private=private))
+            for name, private in (("private", True), ("global", False))
+        }
+        for name, fn in fns.items():
+            _check_equal(fn(), want, f"{name} bins != plain at k={k} {shape}")
+        windows = shape[0] * (R - k + 1)
+        t = _time_alternating(fns)
+        lines.append({"k": k, "shape": list(shape), "windows": windows,
+                      "windows_per_bin": windows / 4 ** k,
+                      "wrapper_takes": "private" if private_bins(k, windows)
+                      else "global",
+                      **{name: v["ms"] for name, v in t.items()}})
+        del rows, packed, validbits
+    say("window_kernel_threshold", cases=lines)
+
+
+def phase_atomic_rate() -> dict:
+    """The card's rate of integer atomic adds to random words, beside the
+    histogram kernels' times: a table of 4^k bins for k in ATOMIC_KS, in
+    shared memory (int32 words at k = 6, 16-bit halves of 32768 words at
+    k = 8 as the kernels lay them out; 4^10 bins fit no SM) and in the
+    global table behind the L2.  G adds a second, and the ms that one add
+    for each window of a production batch would take at that rate."""
+    lib = _build.load()
+    dev = torch.device("cuda")
+    per_thread = 256
+    rates = {}
+    for k in ATOMIC_KS:
+        for where in ("shared", "l2"):
+            half = where == "shared" and k == 8
+            words = 4 ** k // 2 if half else 4 ** k
+            if where == "shared" and words * 4 > 227 * 1024:
+                rates[f"k{k}_{where}"] = None
+                continue
+            table = torch.zeros(words, dtype=torch.int32, device=dev)
+            threads = ctypes.c_int64(0)
+            # as many blocks as the histogram kernels run an SM
+            per_sm = 8 if where == "l2" or k <= 6 else 1
+
+            def run():
+                err = lib.fk_atomic_rate(
+                    table.data_ptr(), words, int(where == "shared"),
+                    int(half), per_sm, per_thread, ctypes.byref(threads),
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(
+                        "atomic rate launch failed: CUDA error "
+                        f"{err} ({lib.fk_cuda_error_string(err).decode()})")
+
+            ms = _median_ms(run)
+            adds = threads.value * per_thread
+            if where == "l2" and int(table.sum()) % adds:
+                raise AssertionError("atomic rate: adds were lost")
+            rates[f"k{k}_{where}"] = {
+                "adds": adds, "ms": ms, "g_adds_per_s": adds / ms / 1e6,
+                "batch_ms": PROD_SHAPE[0] * PROD_SHAPE[1] / (adds / ms)}
+    say("atomic_rate", rates=rates)
+    return rates
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -1129,9 +1277,10 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
-    ap.add_argument("--only", choices=["rowsort"],
-                    help="stop after the row sort's phases (no summary, no "
-                         "ok-line): the quick check of an edit to K3")
+    ap.add_argument("--only", choices=["rowsort", "window"],
+                    help="run only the row sort's phases (K3), or only the "
+                         "histogram kernels' (K1 and K2), and stop: no "
+                         "summary, no ok-line; the quick check of an edit")
     args = ap.parse_args()
 
     smi = phase_environment()
@@ -1142,10 +1291,18 @@ def main() -> int:
         phase_rowsort_vs_plain(args.seed)
         phase_rowsort_timing(args.seed)
         return 0
+    if args.only == "window":
+        phase_ptxas("histogram.cu")
+        phase_ptxas("window_histogram.cu")
+        phase_sass("window_histogram.cu", WINDOW_SASS)
     max_err = phase_kernel(args.seed)
     timing = phase_timing(args.seed)
     k2_err = phase_window_kernel(args.seed)
     k2_timing = phase_window_timing(args.seed)
+    phase_window_threshold(args.seed)
+    atomic_rates = phase_atomic_rate()
+    if args.only == "window":
+        return 0
     sort_err = phase_rowsort_vs_plain(args.seed)
     sort_timing = phase_rowsort_timing(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1203,6 +1360,7 @@ def main() -> int:
         "k": 8,
         "by_k": {k: {**ms_of(v), **bound_of(v["bound"])}
                  for k, v in k2_timing.items()},
+        "atomic_rate": atomic_rates,
         "dense_bases_per_s": {
             f"k{r['k']}{''.join(r['args'])}_{r['route']}_{r['pass']}":
             r["bases_per_s"] for r in runs},

@@ -137,13 +137,19 @@ def load() -> ctypes.CDLL:
     lib.fk_sort_rows.restype = ctypes.c_int
     i64 = ctypes.c_int64
     lib.fk_window_histogram.argtypes = [
-        ptr, i64, i64, ptr, ctypes.c_int, ctypes.c_int, ptr,
+        ptr, i64, i64, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
     ]
     lib.fk_window_histogram.restype = ctypes.c_int
     lib.fk_window_histogram_packed.argtypes = [
-        ptr, ptr, i64, i64, i64, i64, ptr, ctypes.c_int, ctypes.c_int, ptr,
+        ptr, ptr, i64, i64, i64, i64, ptr, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ptr,
     ]
     lib.fk_window_histogram_packed.restype = ctypes.c_int
+    lib.fk_atomic_rate.argtypes = [
+        ptr, i64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(i64), ptr,
+    ]
+    lib.fk_atomic_rate.restype = ctypes.c_int
     lib.fk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fk_cuda_error_string.restype = ctypes.c_char_p
     return lib

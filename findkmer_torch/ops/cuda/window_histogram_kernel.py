@@ -29,7 +29,12 @@ from __future__ import annotations
 import torch
 
 from findkmer_torch.ops import window as window_ops
-from findkmer_torch.ops.cuda.histogram_kernel import MAX_K
+from findkmer_torch.ops.cuda.histogram_kernel import (
+    MAX_K,
+    SHARED_MAX_K,
+    check_out,
+    private_bins,
+)
 
 
 def fused_window_histogram_reference(
@@ -82,17 +87,28 @@ def _device(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def _private(private: bool | None, k: int, windows: int) -> bool:
+    if private is None:
+        return private_bins(k, windows)
+    if private and k > SHARED_MAX_K:
+        raise ValueError(
+            f"block-private bins need k <= {SHARED_MAX_K}, got {k}"
+        )
+    return private
+
+
 def _launch(entry: str, dev: torch.device, k: int, canonical: bool,
-            *args) -> torch.Tensor:
-    """Call the library's `entry` with its leading `args` into a fresh
-    zeroed histogram."""
+            private: bool, out: torch.Tensor | None, *args) -> torch.Tensor:
+    """Call the library's `entry` with its leading `args`; it adds into
+    `out`, or into a fresh zeroed histogram."""
     from findkmer_torch.ops.cuda import _build
 
     lib = _build.load()
-    out = torch.zeros(4 ** k, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.zeros(4 ** k, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(
-            *args, out.data_ptr(), k, int(canonical),
+            *args, out.data_ptr(), k, int(canonical), int(private),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -104,21 +120,42 @@ def _launch(entry: str, dev: torch.device, k: int, canonical: bool,
     return out
 
 
+def _no_launch(hist: torch.Tensor | None, k: int, dev: torch.device,
+               out: torch.Tensor | None) -> torch.Tensor:
+    """The result where no kernel runs: `hist` (None: zeros) fresh, or
+    added into `out`."""
+    if out is None:
+        return (torch.zeros(4 ** k, dtype=torch.int32, device=dev)
+                if hist is None else hist)
+    return out if hist is None else out.add_(hist)
+
+
 def fused_window_histogram_cuda(
-    rows: torch.Tensor, k: int, canonical: bool = False
+    rows: torch.Tensor, k: int, canonical: bool = False,
+    *, private: bool | None = None, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, R) uint8 rows -> (4^k,) int32 histogram of their valid windows.
     Launches the kernel for CUDA tensors; CPU tensors take the plain
-    version.  Rows too short for one window give zeros, with no launch."""
+    version.  Rows too short for one window give zeros, with no launch.
+
+    `private` picks the kernel's block-private shared-memory bins
+    (k <= 9) or its atomics on the global table; None takes
+    `private_bins(k, windows)`.  Both give the same counts.  `out`, an
+    int32 (4^k,) tensor on the rows' device, is added to in place and
+    returned, instead of a fresh histogram."""
     _check_k(k)
     _check_bytes("rows", rows)
     dev = _device(rows)
     B, R = rows.shape
+    private = _private(private, k, B * max(R - k + 1, 0))
+    if out is not None:
+        check_out(out, k, dev)
     if dev.type == "cpu":
-        return fused_window_histogram_reference(rows, k, canonical)
+        return _no_launch(fused_window_histogram_reference(rows, k, canonical),
+                          k, dev, out)
     if B == 0 or R < k:
-        return torch.zeros(4 ** k, dtype=torch.int32, device=dev)
-    return _launch("fk_window_histogram", dev, k, canonical,
+        return _no_launch(None, k, dev, out)
+    return _launch("fk_window_histogram", dev, k, canonical, private, out,
                    rows.data_ptr(), B, R)
 
 
@@ -128,6 +165,7 @@ fused_window_histogram_cuda.launches = 0
 def fused_window_histogram_packed_cuda(
     packed: torch.Tensor, validbits: torch.Tensor, k: int,
     canonical: bool, R: int,
+    *, private: bool | None = None, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The 2-bit wire -> (4^k,) int32 histogram of the valid windows.
 
@@ -135,7 +173,8 @@ def fused_window_histogram_packed_cuda(
     `ops/window.unpack_rows` takes them; R <= R8 is the true row length:
     no window reaches a slot at or past it.  Launches the kernel for CUDA
     tensors (counted on `fused_window_histogram_cuda.launches`); CPU
-    tensors take the plain version."""
+    tensors take the plain version.  `private` and `out` as for the rows
+    entry."""
     _check_k(k)
     _check_bytes("packed", packed)
     _check_bytes("validbits", validbits)
@@ -149,13 +188,17 @@ def fused_window_histogram_packed_cuda(
         )
     if not 0 <= R <= 4 * nbp:
         raise ValueError(f"R={R} outside the wire's 0..{4 * nbp} bases")
+    private = _private(private, k, B * max(R - k + 1, 0))
+    if out is not None:
+        check_out(out, k, dev)
     if dev.type == "cpu":
-        return fused_window_histogram_packed_reference(
-            packed, validbits, k, canonical, R)
+        return _no_launch(fused_window_histogram_packed_reference(
+            packed, validbits, k, canonical, R), k, dev, out)
     if B == 0 or R < k:
-        return torch.zeros(4 ** k, dtype=torch.int32, device=dev)
-    return _launch("fk_window_histogram_packed", dev, k, canonical,
-                   packed.data_ptr(), validbits.data_ptr(), B, nbp, nbv, R)
+        return _no_launch(None, k, dev, out)
+    return _launch("fk_window_histogram_packed", dev, k, canonical, private,
+                   out, packed.data_ptr(), validbits.data_ptr(), B, nbp, nbv,
+                   R)
 
 
 def add_window_counts_cuda(
@@ -163,12 +206,17 @@ def add_window_counts_cuda(
 ) -> torch.Tensor:
     """table += histogram of all valid windows of one batch, through K2:
     the wire entry for a (packed, validbits) pair, the rows entry for
-    (B, R) uint8 rows.  Adds into `table` in place (an int64 table takes
-    the int32 delta of one batch, which cannot overflow)."""
+    (B, R) uint8 rows.  The kernel adds into an int32 `table` itself; an
+    int64 table takes the int32 delta of one batch, which cannot
+    overflow."""
+    out = (table if table.dtype == torch.int32 and table.is_contiguous()
+           else None)
     if isinstance(batch, (tuple, list)):
         packed, validbits = batch
-        table += fused_window_histogram_packed_cuda(
-            packed, validbits, k, canonical, R)
+        delta = fused_window_histogram_packed_cuda(
+            packed, validbits, k, canonical, R, out=out)
     else:
-        table += fused_window_histogram_cuda(batch, k, canonical)
+        delta = fused_window_histogram_cuda(batch, k, canonical, out=out)
+    if out is None:
+        table += delta
     return table

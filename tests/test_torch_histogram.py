@@ -4,7 +4,11 @@ The same numpy-seeded codes and validity go through the JAX `histogram`,
 the Pallas kernel in interpret mode (as tests/test_pallas.py runs it),
 the port's `dense_counts` (all three methods) and the CUDA kernel's
 plain twin.  Counts are integers: equality is exact.  The kernel itself
-runs only on a CUDA card (the `cuda` test at the end).
+runs only on a CUDA card (the `cuda` test at the end); here its walk over
+the windows (16-byte reads of four codes, the one-by-one tail, the parts of
+the bins) is replayed in numpy with the arithmetic of `csrc/histogram.cu`,
+into the bins of `csrc/bins.cuh` as tests/test_torch_window_histogram.py
+replays them.
 """
 
 import jax.numpy as jnp
@@ -117,6 +121,97 @@ def test_add_counts_cuda_on_cpu_vs_jax():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("canonical", [False, True], ids=["fwd", "canon"])
+def test_add_counts_cuda_adds_into_the_table(dtype, canonical):
+    """An int32 table is the kernel's own output (added to in place, no
+    copy); an int64 table takes the int32 delta.  Equal to the JAX
+    add_counts_pallas on the same filled table."""
+    from findkmer_tpu.ops.pallas.histogram_kernel import add_counts_pallas
+
+    k = 4
+    rng = np.random.default_rng(6)
+    rows = rng.integers(0, 5, (3, 70)).astype(np.uint8)
+    start = rng.integers(0, 1000, 4 ** k).astype(np.int32)
+    want = np.asarray(add_counts_pallas(
+        jnp.asarray(rows), jnp.asarray(start), k, canonical, interpret=True))
+    big = (1 << 33) if dtype == torch.int64 else 0
+    table = torch.from_numpy(start).to(dtype) + big
+    ptr = table.data_ptr()
+    got = hk.add_counts_cuda(torch.from_numpy(rows), table, k, canonical)
+    assert got is table and table.data_ptr() == ptr and table.dtype == dtype
+    np.testing.assert_array_equal(table.numpy() - big, want)
+
+
+@pytest.mark.parametrize("bad", ["int64", "shape", "strided", "device"])
+def test_histogram_cuda_rejects_bad_out(bad):
+    k = 3
+    codes = torch.zeros((2, 8), dtype=torch.int32)
+    valid = torch.ones((2, 8), dtype=torch.bool)
+    out = torch.zeros(4 ** k, dtype=torch.int32)
+    if bad == "int64":
+        out = out.long()
+    elif bad == "shape":
+        out = torch.zeros(4 ** k + 1, dtype=torch.int32)
+    elif bad == "strided":
+        out = torch.zeros(2 * 4 ** k, dtype=torch.int32)[::2]
+    elif bad == "device":
+        out = out.to("meta")
+    with pytest.raises(ValueError, match="out must be"):
+        hk.histogram_cuda(codes, valid, k, out=out)
+    good = torch.full((4 ** k,), 5, dtype=torch.int32)
+    assert hk.histogram_cuda(codes, valid, k, out=good) is good
+    assert int(good[0]) == 21 and int(good.sum()) == 5 * 4 ** k + 16
+
+
+# ----------------------------------------------------------------------
+# the kernel's walk, replayed
+# ----------------------------------------------------------------------
+
+def _replay(codes, valid, k, aligned, blocks, threads, parts):
+    """`hist` of histogram.cu: every block's threads over the quads and
+    the tail.  -> (visits of each window by each part, the adds of the
+    walkers in thread order)."""
+    n = codes.size
+    nbins = 4 ** k
+    quads = n // 4 if aligned else 0
+    stride = blocks // parts * threads
+    visits = np.zeros((parts, n), np.int64)
+    adds = []
+    for block in range(blocks):
+        part = block % parts
+        for t in range(threads):
+            start = block // parts * threads + t
+            mine = [i for q in range(start, quads, stride)
+                    for i in range(4 * q, 4 * q + 4)]
+            mine += list(range(4 * quads + start, n, stride))
+            for i in mine:
+                visits[part, i] += 1
+                c = int(codes[i]) & 0xFFFFFFFF  # (uint32_t) of the int32
+                if valid[i] and c < nbins and part == 0:
+                    adds.append((c, 1))  # each part offers it to its bins
+    return visits, adds
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["vector", "scalar"])
+@pytest.mark.parametrize("k", [6, 8, 9])
+@pytest.mark.parametrize("n", [1, 3, 4, 7, 1000, 4099])
+def test_kernel_walk_bins_every_window_once(n, k, aligned):
+    """Every window is read once by each part of the bins, by the 16-byte
+    reads and the tail alike, and the bins (int32 at k = 6, 16-bit halves
+    at k = 8, four parts of them at k = 9) hold the twin's histogram."""
+    from test_torch_window_histogram import HALF_BINS_LOG2, _bins
+
+    codes, valid = _inputs(k, shape=(n,), seed=n + k)
+    parts = max(1, 4 ** k >> HALF_BINS_LOG2) if k > 7 else 1
+    visits, adds = _replay(codes, valid, k, aligned, 3 * parts, 8, parts)
+    assert (visits == 1).all()
+    want = hk.histogram_reference(
+        torch.from_numpy(codes), torch.from_numpy(valid), k).numpy()
+    np.testing.assert_array_equal(_bins(adds, k), want)
+
+
 @pytest.mark.parametrize("bad", [
     "k0", "k11", "codes_int64", "valid_int32", "shape", "strided",
 ])
@@ -161,7 +256,7 @@ def test_dense_counts_rejects_kernel_and_unknown_names(method):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 4, 6, 7, 8, 10])
+@pytest.mark.parametrize("k", [1, 4, 6, 7, 8, 9, 10])
 def test_histogram_kernel_vs_twin_on_card(k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
