@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--only rowsort|window]
+    python3 chip_smoke.py [--seed N] [--profile] [--only rowsort|window|stream]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
 sm_90a) and nvcc.  Each phase prints one line; any failure raises, so the
@@ -59,8 +59,9 @@ exit code is non-zero and the final ok-line is not printed.
      keys) and one (1, 2^22) row, which takes the kernel's global passes.
      Then the median CUDA-event ms of the kernel and of the library call
      (`torch.sort`, plus a gather where there is a payload: also the plain
-     version) at the production shapes, timed in turn (the kernel sorts
-     in place, so each of its runs restores the input first; that copy is
+     version) at the production shapes, at that one long row and at one
+     row of 2^26 slots (the dedup before a spill decision of phase 11),
+     timed in turn (the kernel sorts in place, so each of its runs restores the input first; that copy is
      timed alone and subtracted), beside the bound (each byte of the rows
      read once and written once at 3.35 TB/s, or the network's
      compare-exchanges at the card's 32-bit rate, whichever is larger)
@@ -69,9 +70,8 @@ exit code is non-zero and the final ok-line is not printed.
      count` at --batch-rows 1024 on cuda for k=8, k=8 --canonical and
      k=10, each by three routes: the default step (K2, which must launch
      once per batch, and K1 never), the two-stage step (dense_kernel=
-     "two_stage": K1 once per batch, K2 never) and `--hist scatter`, each
-     route twice in mirrored order (a b c c b a); all six outputs must be
-     equal byte for byte.  Beside it the rate of
+     "two_stage": K1 once per batch, K2 never) and `--hist scatter`; the
+     three outputs must be equal byte for byte.  Beside it the rate of
      the host batcher alone and the ms of the device step alone on a
      batch staged on the card, for each of the three (with the share of
      its windows that are valid)
@@ -91,6 +91,27 @@ exit code is non-zero and the final ok-line is not printed.
      bases with N runs at k=8 and k=21 --canonical, equal byte for byte to
      the same run with --device cpu; `count --per-input` over three
      inputs, each file equal to a single `count` of that input
+ 11. the restartable stream: the same genome and geometry through
+     `findkmer_torch.cli stream`, every output held by sha256 to the
+     `count` run of the same flags (phases 6 and 7).  Dense: `stream -k 8
+     --checkpoint D --checkpoint-every 2` by the default step (K2 once a
+     batch) and by the two-stage step (K1 once a batch).  Sparse: `stream
+     -k 21 --canonical --checkpoint D --checkpoint-every 2`: every row
+     sort a K3 launch, four of them for its three checkpoints; the file
+     size of each checkpoint, and from `--stats json` the seconds of their
+     compactions, copies to the host and compressed writes.  Kill and resume: the same sparse stream as a subprocess,
+     SIGKILLed once its first `latest.json` exists and run again to the
+     end (with the default --checkpoint-every: the final checkpoint alone):
+     same bytes, and the `--stats json` totals of the uninterrupted
+     run.  Spill: `count -k 21 --canonical --spill S --sparse-capacity
+     2^25 --sparse-compact-entries 2^26` writes three runs of ~1 GB or
+     more and merges them: same bytes, the run files gone, with the
+     seconds of each spill, the bytes spilled and the seconds of the
+     residual pull and of the merge; then `stream` with both --spill and
+     --checkpoint, killed after a checkpoint that follows a spill, and
+     resumed: same bytes.  Heap-merge finalize:
+     FINDKMER_ORDERED_FINALIZE=0 `count -k 21 --canonical`: same bytes,
+     its finalize seconds beside the ordered finalize's
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -102,11 +123,14 @@ With --only rowsort the script runs phases 1, 2 and 5 (and first prints
 what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
 the instructions of its production kernels by opcode); with --only window
 phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
-the quick check of an edit to those kernels.  Either prints no summary
-and no ok-line.
+the quick check of an edit to those kernels; with --only stream phases
+1, 2 and 11 (which then makes its own `count` runs to compare with).  Each
+of the three prints no summary and no ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
-launches on the main paths, its ms beside the plain version's, the one
+launches on the main paths: the `count` runs, and each run that phase
+11 makes in this process (`launches_by_path`), each counted from 0; its
+ms beside the plain version's, the one
 library call's where there is one, and its bound); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -123,6 +147,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -189,6 +214,11 @@ SORT_SHAPES = (
     ("counted_k21", (262144, 2048), torch.int64, torch.int32),
     ("raw_k15", (262144, 1024), torch.int32, None),
 )
+# one row that takes K3's global passes (the cross-row dedup's shape)
+LONG_ROW = ("long_row", (1, 1 << 22), torch.int64, torch.int32)
+# the same at the size of the dedup before a spill decision of `count
+# --spill` at 256 Mbase: the whole store as one row (timed, not re-checked)
+DEDUP_ROW = ("dedup_row", (1, 1 << 26), torch.int64, torch.int32)
 SORT_CASES = ("random", "equal", "sentinel", "sorted", "reversed")
 # row lengths at the seams of K3: a thread's 8 slots, a warp's 256, the
 # production rows' 1024 and 2048, the tile of 4096 and one past it
@@ -716,7 +746,7 @@ def phase_rowsort_vs_plain(seed: int) -> int:
     combos += [((SEAM_ROWS, C), kd, vd) for C in SORT_SEAMS
                for kd in dts for vd in (None,) + dts]
     combos += [(shape, kd, vd) for _, shape, kd, vd in SORT_SHAPES]
-    combos.append(((1, 1 << 22), torch.int64, torch.int32))
+    combos.append(LONG_ROW[1:])
     n_cases = 0
     for shape, kd, vd in combos:
         for case in SORT_CASES + ("duplicates",):
@@ -748,15 +778,15 @@ def phase_rowsort_vs_plain(seed: int) -> int:
 def phase_rowsort_timing(seed: int) -> dict:
     """Median CUDA-event ms of K3 and of the library call (`torch.sort`,
     plus a gather of the payload: the plain version too) at the production
-    row-sort shapes, random codes, timed in turn.  The kernel sorts in
-    place: each of its runs first restores the unsorted input (`copy`,
+    row-sort shapes and at one long row of 2^22 and of 2^26 slots, random
+    codes, timed in turn.  The kernel sorts in place: each of its runs first restores the unsorted input (`copy`,
     timed alone too); its ms is kernel+copy minus copy.  The bound counts
     keys and payload read once and written once, and the network's
     compare-exchanges (P/2 a stage, log2(P) (log2(P) + 1) / 2 stages for
     rows of P = next_pow2(C) slots)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     timing = {}
-    for name, shape, kd, vd in SORT_SHAPES:
+    for name, shape, kd, vd in SORT_SHAPES + (LONG_ROW, DEDUP_ROW):
         src = _sort_input(shape, kd, "random", gen)
         vsrc = None if vd is None else torch.ones(shape, dtype=vd,
                                                   device="cuda")
@@ -961,6 +991,330 @@ def phase_sparse_device_step(fasta: str) -> None:
     torch.cuda.empty_cache()
 
 
+STREAM_GEOM = ["--batch-rows", "1024", "--chunk-len", "65536", "--device",
+               "cuda"]
+STREAM_SPARSE = ["-k", "21", "--canonical"]
+# three runs of ~66 M entries (~1 GB) or more: a compaction a batch, and a
+# store of one batch's distinct 21-mers (~66 M) is over the capacity
+# row sorts of the sparse stream over the seeded genome (phase_stream)
+SPARSE_STREAM_SORTS = 4
+SPILL_FLAGS = ["--sparse-capacity", str(1 << 25),
+               "--sparse-compact-entries", str(1 << 26)]
+STAT_TOTALS = ("records", "bases", "valid_bases", "batches", "rows",
+               "h2d_bytes")
+
+
+class _Tap:
+    """Times every call of `owner.name` (host seconds, the device drained
+    after it) and keeps what `after()` returns beside each."""
+
+    def __init__(self, owner, name: str, after):
+        self.owner, self.name, self.after = owner, name, after
+        self.calls = []
+        self._orig = getattr(owner, name)
+
+    def __enter__(self):
+        def tapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append({"seconds": time.perf_counter() - t0,
+                               **self.after(*args)})
+            return out
+
+        setattr(self.owner, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._orig)
+
+
+def _dir_bytes(d: str, suffix: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d)
+               if n.endswith(suffix))
+
+
+def _hashed(out: str, want: str, what: str) -> tuple:
+    digest, size = _sha256_and_delete(out)
+    if digest != want:
+        raise AssertionError(f"{what}: sha256 {digest} differs from the "
+                             f"count run's {want}")
+    return digest, size
+
+
+def _cli_process(args, **popen_kw) -> subprocess.Popen:
+    """`python3 -m findkmer_torch.cli <args>` as a process of its own."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.Popen(
+        [sys.executable, "-m", "findkmer_torch.cli"] + args, env=env,
+        cwd=REPO, stdout=subprocess.DEVNULL, **popen_kw)
+
+
+def _kill_then_resume(args, resume_args, ready, what: str) -> dict:
+    """Start `stream <args>` as a process, SIGKILL it once `ready()`, then
+    run `stream <resume_args>` to its end.  -> the resumed run's --stats
+    json, with the seconds of both runs."""
+    t0 = time.perf_counter()
+    proc = _cli_process(args, stderr=subprocess.DEVNULL)
+    try:
+        while proc.poll() is None and not ready():
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"{what}: no checkpoint in 600 s")
+            time.sleep(0.05)
+        if proc.poll() is not None:
+            raise AssertionError(
+                f"{what}: the stream ended (exit {proc.returncode}) before "
+                "it could be killed")
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    killed_after = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = _cli_process(resume_args + ["--stats", "json"],
+                        stderr=subprocess.PIPE, text=True)
+    try:
+        _, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the resumed stream exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    stats = json.loads([ln for ln in err.splitlines()
+                        if ln.startswith("{")][-1])
+    return {**stats, "killed_after_s": killed_after,
+            "resume_s": time.perf_counter() - t0}
+
+
+def phase_stream(tmp: str, fasta: str, want: dict) -> dict:
+    """The restartable stream, the disk spill and the heap-merge finalize
+    at 256 Mbase (phase 11 of the module docstring).  `want`: the sha256
+    of the `count` runs' outputs ("dense", "sparse") and the sparse count's
+    phases; made here when empty (--only stream).  -> {kernel: {run:
+    launches}} of the runs made in this process, the counts set to 0 just
+    before each run and read just after it (the killed and resumed streams
+    are processes of their own: not counted)."""
+    if not want:
+        want = {}
+        for name, flags in (("dense", ["-k", "8"]),
+                            ("sparse", STREAM_SPARSE)):
+            out = os.path.join(tmp, f"count_{name}.tsv")
+            stats, _ = run_cli(["count", "-i", fasta, "-o", out, "--stats",
+                                "json"] + flags + STREAM_GEOM)
+            want[name], _ = _sha256_and_delete(out)
+            want[f"{name}_phases"] = stats["phases"]
+            say("stream_reference_count", run=name, sha256=want[name],
+                wall_s=stats["wall_s"], batches=stats["batches"])
+    wrappers = {"histogram_cuda": histogram_cuda,
+                "fused_window_histogram_cuda": fused_window_histogram_cuda,
+                "sort_rows_cuda": sort_rows_cuda}
+    by_run = {name: {} for name in wrappers}
+
+    def counted_run(run: str, *cli, **kw):
+        """run_cli with every kernel's count set to 0 just before and read
+        just after -> (stats, wall, {kernel: launches})."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        stats, wall = run_cli(*cli, **kw)
+        launched = {name: fn.launches for name, fn in wrappers.items()}
+        for name, n in launched.items():
+            by_run[name][run] = n
+        return stats, wall, launched
+
+    def checkpoints(stats) -> dict:
+        """The checkpoints of a finished stream: each file's batch and
+        bytes, and the seconds of their three parts from --stats json."""
+        files = sorted(n for n in os.listdir(ck) if n.endswith(".npz"))
+        ph = stats["phases"]
+        parts = {part: ph[f"checkpoint/{part}"]
+                 for part in ("compact", "d2h", "zlib")}
+        if {p["calls"] for p in parts.values()} != {len(files)}:
+            raise AssertionError(
+                f"{len(files)} checkpoint files for the phases {parts}")
+        return {"files": [{"batch": int(n[5:15]), "file_bytes":
+                           os.path.getsize(os.path.join(ck, n))}
+                          for n in files],
+                **{f"{part}_s": p["total_s"] for part, p in parts.items()},
+                "seconds": sum(p["total_s"] for p in parts.values())}
+
+    ck = os.path.join(tmp, "ck")
+    out = os.path.join(tmp, "stream.tsv")
+
+    def stream_args(flags, every=("--checkpoint-every", "2")):
+        return (["stream", "-i", fasta, "-o", out, "--checkpoint", ck,
+                 *every] + flags + STREAM_GEOM)
+
+    # 1. dense: K2 once a batch; by the two-stage step K1 once a batch
+    for dense_kernel, name in (("fused", "fused_window_histogram_cuda"),
+                               ("two_stage", "histogram_cuda")):
+        stats, wall, launched = counted_run(
+            f"stream_dense_{dense_kernel}",
+            stream_args(["-k", "8", "--stats", "json"]),
+            dense_kernel=dense_kernel)
+        saves = checkpoints(stats)
+        others = {n: c for n, c in launched.items() if n != name and c}
+        if launched[name] != stats["batches"] or others or not saves["files"]:
+            raise AssertionError(
+                f"dense stream ({dense_kernel}): launches {launched} and "
+                f"{len(saves['files'])} checkpoints for {stats['batches']} "
+                "batches")
+        digest, size = _hashed(out, want["dense"],
+                               f"dense stream ({dense_kernel})")
+        say("stream_dense", k=8, dense_kernel=dense_kernel,
+            batches=stats["batches"], launches=launched[name],
+            checkpoints=saves, wall_s=wall, out_bytes=size,
+            sha256=digest, identical_to_count=True)
+        shutil.rmtree(ck)
+
+    # 2. sparse: every row sort of the run is a K3 launch.  Checkpoints
+    # follow batches 2, 4 and 5: three compactions, and the squeeze of the
+    # first table to its live ladder (the later ones are at theirs)
+    with _RowSortTap() as sorts:
+        full, wall, launched = counted_run(
+            "stream_sparse", stream_args(STREAM_SPARSE + ["--stats", "json"]))
+    saves = checkpoints(full)
+    k3 = launched["sort_rows_cuda"]
+    if (k3 != sorts.calls or k3 != SPARSE_STREAM_SORTS
+            or len(saves["files"]) != 3
+            or launched["histogram_cuda"]
+            or launched["fused_window_histogram_cuda"]):
+        raise AssertionError(
+            f"sparse stream: launches {launched} for {sorts.calls} row "
+            f"sorts ({SPARSE_STREAM_SORTS} expected) and "
+            f"{len(saves['files'])} checkpoints")
+    digest, size = _hashed(out, want["sparse"], "sparse stream")
+    say("stream_sparse", args=STREAM_SPARSE, batches=full["batches"],
+        k3_launches=k3, row_sorts=sorts.calls, checkpoints=saves,
+        checkpoint_s=saves["seconds"], wall_s=wall,
+        cli_wall_s=full["wall_s"], phases=full["phases"], out_bytes=size,
+        sha256=digest, identical_to_count=True)
+    shutil.rmtree(ck)
+    torch.cuda.empty_cache()
+
+    # 3. kill and resume, each run a process of its own
+    # (the resumed run takes the default --checkpoint-every: it writes the
+    # final checkpoint alone, each being ~100 s of zlib at this size)
+    resumed = _kill_then_resume(
+        stream_args(STREAM_SPARSE), stream_args(STREAM_SPARSE, every=()),
+        lambda: os.path.exists(os.path.join(ck, "latest.json")),
+        "kill and resume")
+    digest, size = _hashed(out, want["sparse"], "resumed sparse stream")
+    totals = {key: resumed[key] for key in STAT_TOTALS}
+    if totals != {key: full[key] for key in STAT_TOTALS}:
+        raise AssertionError(
+            f"resumed stream: totals {totals} differ from the uninterrupted "
+            f"run's {full}")
+    say("stream_kill_resume", args=STREAM_SPARSE,
+        killed_after_s=resumed["killed_after_s"],
+        resume_s=resumed["resume_s"], resume_cli_wall_s=resumed["wall_s"],
+        checkpoints=sorted(n for n in os.listdir(ck) if n.endswith(".npz")),
+        totals=totals, out_bytes=size, sha256=digest,
+        identical_to_count=True, totals_equal_uninterrupted=True)
+    shutil.rmtree(ck)
+
+    # 4. spill: count --spill, then stream --spill --checkpoint killed
+    # after a checkpoint that follows a spill
+    sp = os.path.join(tmp, "sp")
+
+    def spilled(counter, store):
+        codes, counts = (os.path.join(sp, f"run{counter._spill_n - 1:05d}."
+                                      f"{part}.npy")
+                         for part in ("codes", "counts"))
+        return {"run": counter._spill_n - 1,
+                "entries": (os.path.getsize(codes) - 128) // 8,
+                "file_bytes": os.path.getsize(codes) + os.path.getsize(counts)}
+
+    with _Tap(KmerCounter, "_spill_store", spilled) as tap, \
+            _RowSortTap() as sorts:
+        stats, wall, launched = counted_run(
+            "count_spill",
+            ["count", "-i", fasta, "-o", out, "--spill", sp, "--stats",
+             "json"] + STREAM_SPARSE + SPILL_FLAGS + STREAM_GEOM)
+    left = sorted(os.listdir(sp))
+    if len(tap.calls) < 3 or left != ["stream.token"]:
+        raise AssertionError(
+            f"spill: {len(tap.calls)} runs written, {left} left in the dir")
+    if launched["sort_rows_cuda"] != sorts.calls:
+        raise AssertionError(
+            f"count --spill: launches {launched} for {sorts.calls} row sorts")
+    digest, size = _hashed(out, want["sparse"], "count --spill")
+    ph = stats["phases"]
+    say("spill_count", args=STREAM_SPARSE + SPILL_FLAGS, runs=tap.calls,
+        runs_written=len(tap.calls),
+        bytes_spilled=sum(c["file_bytes"] for c in tap.calls),
+        spill_s=sum(c["seconds"] for c in tap.calls),
+        residual_pull_s=ph["finalize/residual_pull"]["total_s"],
+        merge_s=ph["finalize/merge"]["total_s"],
+        merge_blocks=ph["finalize/merge"]["calls"],
+        k3_launches=launched["sort_rows_cuda"], row_sorts=sorts.calls,
+        wall_s=wall,
+        cli_wall_s=stats["wall_s"], bases_per_s=stats["bases_per_s"],
+        phases=ph, out_bytes=size, sha256=digest, identical_to_count=True,
+        run_files_left=0)
+    shutil.rmtree(sp)
+    torch.cuda.empty_cache()
+
+    def checkpoint_follows_a_spill():
+        try:
+            with open(os.path.join(ck, "latest.json")) as f:
+                return json.load(f)["extra"].get("spill_runs", 0) >= 1
+        except (OSError, ValueError):
+            return False
+
+    spill_args = STREAM_SPARSE + SPILL_FLAGS + ["--spill", sp]
+    resumed = _kill_then_resume(
+        stream_args(spill_args), stream_args(spill_args, every=()),
+        checkpoint_follows_a_spill, "spill + checkpoint")
+    digest, size = _hashed(out, want["sparse"],
+                           "resumed stream --spill --checkpoint")
+    left = sorted(os.listdir(sp))
+    if left != ["stream.token"]:
+        raise AssertionError(f"resumed spill: {left} left in the dir")
+    say("stream_spill_kill_resume", args=STREAM_SPARSE + SPILL_FLAGS,
+        killed_after_s=resumed["killed_after_s"],
+        resume_s=resumed["resume_s"], resume_cli_wall_s=resumed["wall_s"],
+        checkpoint_bytes=_dir_bytes(ck, ".npz"), out_bytes=size,
+        sha256=digest, identical_to_count=True, run_files_left=0)
+    shutil.rmtree(ck)
+    shutil.rmtree(sp)
+
+    # 5. the heap-merge finalize, beside the ordered one
+    os.environ["FINDKMER_ORDERED_FINALIZE"] = "0"
+    try:
+        with _RowSortTap() as sorts:
+            stats, wall, launched = counted_run(
+                "count_heap_merge",
+                ["count", "-i", fasta, "-o", out, "--stats", "json"]
+                + STREAM_SPARSE + STREAM_GEOM)
+    finally:
+        del os.environ["FINDKMER_ORDERED_FINALIZE"]
+    if not sorts.calls or launched["sort_rows_cuda"] != sorts.calls:
+        raise AssertionError(
+            f"heap-merge count: launches {launched} for {sorts.calls} row "
+            "sorts")
+    digest, size = _hashed(out, want["sparse"], "heap-merge finalize")
+    ordered = want["sparse_phases"]
+    say("heap_merge_finalize", args=STREAM_SPARSE,
+        k3_launches=launched["sort_rows_cuda"],
+        finalize_s=stats["phases"]["finalize"]["total_s"],
+        write_s=stats["phases"]["write"]["total_s"],
+        ordered_finalize_s=ordered["finalize"]["total_s"],
+        ordered_write_s=ordered["write"]["total_s"],
+        phases=stats["phases"], ordered_phases=ordered, wall_s=wall,
+        cli_wall_s=stats["wall_s"], out_bytes=size, sha256=digest,
+        identical_to_count=True)
+    torch.cuda.empty_cache()
+    if not all(sum(runs.values()) for runs in by_run.values()):
+        raise AssertionError(f"stream phase: a kernel never ran: {by_run}")
+    say("stream_launches", **by_run)
+    return by_run
+
+
 def write_genome(path: str, seed: int, total: int = GENOME_BASES) -> None:
     """A seeded multi-record FASTA of `total` bases: uniform ACGT with
     ~5% lowercase, ~0.1% IUPAC codes, a few N gaps and poly-A runs per
@@ -1117,14 +1471,15 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
     if profile:
         phase_profile(fasta)
     runs = []
+    digests = {}
     histogram_cuda.launches = 0
     fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = 0
     for k, extra in ((8, []), (8, ["--canonical"]), (10, [])):
         want_bytes = None
-        # each route twice, in mirrored order (a b c c b a), so that a
-        # drift over the calls does not favour one route's rate
-        order = list(DENSE_ROUTES) + list(reversed(DENSE_ROUTES))
+        # each route once (the mirrored second pass went when the stream
+        # phase took its place in the time budget)
+        order = list(DENSE_ROUTES)
         for i, (route, hist, dense_kernel) in enumerate(order):
             out = os.path.join(tmp, f"k{k}{''.join(extra)}_{route}.tsv")
             k1 = histogram_cuda.launches
@@ -1158,12 +1513,14 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
                    "device": stats["device"]}
             say("main_path", **run)
             runs.append(run)
+        digest = hashlib.sha256(want_bytes).hexdigest()
+        digests[f"k{k}{''.join(extra)}"] = digest
         say("main_path_identical", k=k, args=extra, runs=len(order),
-            bytes=len(want_bytes))
+            bytes=len(want_bytes), sha256=digest)
     if sort_rows_cuda.launches:
         raise AssertionError("the dense path launched the row sort")
     return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
-            runs)
+            runs, digests)
 
 
 def phase_oracle(tmp: str) -> None:
@@ -1277,10 +1634,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
-    ap.add_argument("--only", choices=["rowsort", "window"],
-                    help="run only the row sort's phases (K3), or only the "
-                         "histogram kernels' (K1 and K2), and stop: no "
-                         "summary, no ok-line; the quick check of an edit")
+    ap.add_argument("--only", choices=["rowsort", "window", "stream"],
+                    help="run only the row sort's phases (K3), only the "
+                         "histogram kernels' (K1 and K2), or only the "
+                         "restartable stream's, and stop: no summary, no "
+                         "ok-line; the quick check of an edit")
     args = ap.parse_args()
 
     smi = phase_environment()
@@ -1290,6 +1648,10 @@ def main() -> int:
         phase_sass()
         phase_rowsort_vs_plain(args.seed)
         phase_rowsort_timing(args.seed)
+        return 0
+    if args.only == "stream":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_stream(tmp, phase_genome(tmp, args.seed), {})
         return 0
     if args.only == "window":
         phase_ptxas("histogram.cu")
@@ -1307,11 +1669,16 @@ def main() -> int:
     sort_timing = phase_rowsort_timing(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fasta = phase_genome(tmp, args.seed)
-        launches, k2_launches, runs = phase_main_path(fasta, tmp,
-                                                      args.profile)
+        launches, k2_launches, runs, dense_sha = phase_main_path(
+            fasta, tmp, args.profile)
         sort_launches, sparse_runs = phase_sparse_main_path(tmp, fasta)
         phase_sparse_device_step(fasta)
         phase_oracle(tmp)
+        counted = next(r for r in sparse_runs if r["row_sort"] == "auto"
+                       and [str(r["k"])] + r["args"] == STREAM_SPARSE[1:])
+        stream_launches = phase_stream(tmp, fasta, {
+            "dense": dense_sha["k8"], "sparse": counted["sha256"],
+            "sparse_phases": counted["phases"]})
         os.unlink(fasta)
         phase_entry_points(tmp, args.seed)
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
@@ -1324,12 +1691,18 @@ def main() -> int:
     def bound_of(b: dict) -> dict:
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
+    def launches_of(name: str, count: int) -> dict:
+        """The `count` paths' launches and each stream-phase run's own."""
+        by_run = stream_launches[name]
+        return {"launches": count + sum(by_run.values()),
+                "launches_by_path": {"count": count, **by_run}}
+
     print(json.dumps({"kernels": [{
         "name": "histogram_cuda",
         "route": "cuda",
         "source": "findkmer_torch/csrc/histogram.cu",
         "replaces": "findkmer_tpu/ops/pallas/histogram_kernel.py:125",
-        "launches": launches,
+        **launches_of("histogram_cuda", launches),
         "max_abs_err": max_err,
         "ms": t8["kernel"]["ms"],
         "plain_ms": t8["plain"]["ms"],
@@ -1348,7 +1721,7 @@ def main() -> int:
         "route": "cuda",
         "source": "findkmer_torch/csrc/window_histogram.cu",
         "replaces": "findkmer_tpu/ops/pallas/histogram_kernel.py:254",
-        "launches": k2_launches,
+        **launches_of("fused_window_histogram_cuda", k2_launches),
         "max_abs_err": k2_err,
         "ms": w8["kernel"]["ms"],
         "plain_ms": w8["plain"]["ms"],
@@ -1370,7 +1743,7 @@ def main() -> int:
         "route": "cuda",
         "source": "findkmer_torch/csrc/rowsort.cu",
         "replaces": "bench/probe_plsort.py:43",
-        "launches": sort_launches,
+        **launches_of("sort_rows_cuda", sort_launches),
         "max_abs_err": sort_err,
         "ms": raw21["kernel"]["ms"],
         "plain_ms": raw21["plain"]["ms"],

@@ -1,4 +1,5 @@
-"""Public Python API of the port: `count`, `count_per_record`, `count_text`.
+"""Public Python API of the port: `count`, `count_per_record`, `count_text`,
+and `stream_count` (the restartable count of `streaming.py`, re-exported).
 
 Counterpart of the same functions of `findkmer_tpu/api.py`, with the
 torch device named explicitly (`device="cuda"` or `"cpu"`, or a
@@ -10,6 +11,9 @@ torch device named explicitly (`device="cuda"` or `"cpu"`, or a
     spec["ACGTACGT"]                                       # -> count
     spec.to_dict(), spec.total(), spec.distinct(), spec.histo()
     fkt.count(["a.fa"], k=21, canonical=True, device="cuda").write("o.tsv")
+
+    fkt.stream_count(["genome.fa"], fkt.Config(k=21), device="cuda",
+                     checkpoint_dir="ck", checkpoint_every=64)
 
 `Spectrum` is the port's own copy of the JAX package's class, with the
 same methods; its lookups use the port's window helpers.
@@ -198,3 +202,13 @@ def count_text(text: str, k: int, *,
     ):
         state = counter.step(state, counter.put_batch(rows))
     return Spectrum.from_engine(counter.finalize(state), cfg)
+
+
+def stream_count(paths, cfg: Config, **kw):
+    """`findkmer_torch.streaming.stream_count`: the engine's spectrum of
+    `paths` (dense np counts, or sparse (codes, counts)), counted with
+    optional checkpoint / resume (checkpoint_dir, checkpoint_every,
+    stats, num_processes, process_id, device)."""
+    from findkmer_torch import streaming
+
+    return streaming.stream_count(paths, cfg, **kw)

@@ -1,12 +1,18 @@
-"""findkmer-torch CLI: the `count` and `selftest` subcommands of the port.
+"""findkmer-torch CLI: the `count`, `stream` and `selftest` subcommands of
+the port.
 
     python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv [--device cuda]
     python -m findkmer_torch.cli count -i a.fa b.fa -k 8 --per-input -o DIR
     python -m findkmer_torch.cli count -i reads.fq -k 8 --per-record
+    python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv --spill DIR
+    python -m findkmer_torch.cli stream -i in.fa -k 21 -o out.tsv \
+        --checkpoint DIR [--checkpoint-every N] [--spill DIR]
     python -m findkmer_torch.cli selftest [--device cuda] [--seed N]
 
 Same arguments (flags, defaults, help texts, exit codes) and the same
-output bytes as `findkmer count` of the JAX package: `_add_common`,
+output bytes as `findkmer count` and `findkmer stream` of the JAX package
+(whose checkpoints and spill runs the port reads, and the other way
+round): `_add_common`,
 `_cfg_from_args` with its sparse autosize, `_open_out` and the
 --per-input file names `_per_input_name` are the port's own copies of
 that CLI's helpers, and the spectrum is written by `findkmer_torch.output`
@@ -14,9 +20,9 @@ that CLI's helpers, and the spectrum is written by `findkmer_torch.output`
 the counter's chunked finalize).  Any k up to 31 counts.  `--device` picks the torch device; asking for cuda without
 one is an error, never a CPU run.
 
-Not yet ported, each refused with one error line and exit 2: `--spill`,
-`--devices` other than 1 (count and selftest), `--profile`, and the
-legacy finalize FINDKMER_ORDERED_FINALIZE=0.
+Not yet ported, each refused with one error line and exit 2: `--devices`
+other than 1, `--profile`, and `stream --coordinator` with more than one
+process.
 """
 
 from __future__ import annotations
@@ -213,19 +219,67 @@ def _per_input_name(path: str, seen: dict) -> str:
 def _refuse_unported(args, cfg) -> None:
     where = "ROADMAP.md Queue 1"
     unported = [
-        (bool(args.spill), "--spill", f"{where} item 8"),
         (args.devices != 1, f"--devices {args.devices}", f"{where} item 13"),
         (args.profile is not None, "--profile", f"{where} item 12"),
-        (cfg.resolved_table_mode != "direct"
-         and os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1",
-         "FINDKMER_ORDERED_FINALIZE=0 (the legacy heap-merge finalize)",
-         f"{where} item 7b"),
     ]
     for hit, what, item in unported:
         if hit:
             raise NotImplementedError(
                 f"{what} is not yet ported to findkmer_torch ({item})"
             )
+
+
+def _use_streamed_finalize(counter) -> bool:
+    """Sparse runs stream the write per finalize chunk
+    (counter.finalize_chunks: the ordered finalize, or the spill merge).
+    FINDKMER_ORDERED_FINALIZE=0 turns this off too, so that the heap-merge
+    finalize is reachable from the CLI."""
+    if os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1":
+        return False
+    return counter.mode != "direct"
+
+
+def emit_streamed_spectrum(counter, state, cfg, output, timers=None):
+    """Open `output` and write counter.finalize_chunks(state) to it: the
+    shared streamed-finalize tail of `count` and `stream`.  Each chunk is
+    formatted and written while the next one's device-to-host copy is in
+    flight."""
+    from findkmer_torch import output as output_mod
+
+    f, close = _open_out(output)
+    try:
+        chunks = counter.finalize_chunks(state, timers=timers)
+        if timers is not None:
+            chunks = _timed_chunks(chunks, timers)
+        output_mod.write_spectrum_streaming(f, chunks, cfg)
+    finally:
+        if close:
+            f.close()
+
+
+def _warn_numpy_encoder(cfg) -> str:
+    """-> the host encoder that will run ("native" or "numpy"), with one
+    warning line where the C one was asked for and could not be built."""
+    from findkmer_torch import pipeline
+
+    encoder = pipeline.host_encoder(cfg.use_native_encode)
+    if encoder == "numpy" and cfg.use_native_encode:
+        print("findkmer-torch: warning: the C host encoder "
+              "(findkmer_torch/io/native.py) could not be built with $CC or "
+              "cc; counting with its numpy fallback (same output, slower "
+              "host path)", file=sys.stderr)
+    return encoder
+
+
+def _set_log_level(level) -> None:
+    """--log LEVEL: the level of the "findkmer" logger, through the
+    variable that `utils.logging.get_logger` reads at its first call, and
+    on the logger itself where an earlier import has configured it."""
+    if level:
+        import logging
+
+        logging.getLogger("findkmer").setLevel(level.upper())
+        os.environ["FINDKMER_LOGLEVEL"] = level
 
 
 def _timed_chunks(chunks, timers):
@@ -303,8 +357,7 @@ def cmd_count(args, row_sort: str = "auto",
     from findkmer_torch.device import resolve_device
     from findkmer_torch.utils.prof import PhaseTimers
 
-    if args.log:
-        os.environ["FINDKMER_LOGLEVEL"] = args.log
+    _set_log_level(args.log)
     cfg = _cfg_from_args(args)
     if args.per_input and args.per_record:
         raise ValueError("--per-input and --per-record are exclusive")
@@ -313,12 +366,7 @@ def cmd_count(args, row_sort: str = "auto",
                          "not compose with --per-input/--per-record")
     _refuse_unported(args, cfg)
     device = resolve_device(args.device)
-    encoder = pipeline.host_encoder(cfg.use_native_encode)
-    if encoder == "numpy" and cfg.use_native_encode:
-        print("findkmer-torch: warning: the C host encoder "
-              "(findkmer_torch/io/native.py) could not be built with $CC or "
-              "cc; counting with its numpy fallback (same output, slower "
-              "host path)", file=sys.stderr)
+    encoder = _warn_numpy_encoder(cfg)
     kernels = dict(row_sort=row_sort, dense_kernel=dense_kernel)
     if args.per_input:
         return _count_per_input(args, cfg, device, kernels)
@@ -332,25 +380,23 @@ def cmd_count(args, row_sort: str = "auto",
     counter, state = pipeline.run_count(args.input, cfg, device,
                                         stats=stats, timers=timers,
                                         **kernels)
-    f, close = _open_out(args.output)
-    try:
-        if counter.mode != "direct":
-            # sparse: format and write each finalize chunk while the next
-            # chunk's device-to-host copy is in flight
-            chunks = counter.finalize_chunks(state, timers=timers)
-            if timers is not None:
-                chunks = _timed_chunks(chunks, timers)
-            output_mod.write_spectrum_streaming(f, chunks, cfg)
-        elif timers is None:
-            output_mod.write_spectrum(f, counter.finalize(state), cfg)
-        else:
-            with timers.phase("finalize"):
-                spectrum = counter.finalize(state)
-            with timers.phase("write"):
-                output_mod.write_spectrum(f, spectrum, cfg)
-    finally:
-        if close:
-            f.close()
+    if _use_streamed_finalize(counter):
+        emit_streamed_spectrum(counter, state, cfg, args.output,
+                               timers=timers)
+    else:
+        # dense, or the heap-merge finalize of a sparse table
+        f, close = _open_out(args.output)
+        try:
+            if timers is None:
+                output_mod.write_spectrum(f, counter.finalize(state), cfg)
+            else:
+                with timers.phase("finalize"):
+                    spectrum = counter.finalize(state, timers=timers)
+                with timers.phase("write"):
+                    output_mod.write_spectrum(f, spectrum, cfg)
+        finally:
+            if close:
+                f.close()
     wall = time.time() - t0
     if args.stats == "json":
         d = stats.as_dict()
@@ -367,6 +413,26 @@ def cmd_count(args, row_sort: str = "auto",
     return 0
 
 
+def cmd_stream(args, row_sort: str = "auto",
+               dense_kernel: str = "fused") -> int:
+    """`stream` (streaming.py); row_sort and dense_kernel as in
+    `cmd_count`."""
+    from findkmer_torch import streaming
+
+    _set_log_level(args.log)
+    return streaming.run_stream(args, row_sort=row_sort,
+                                dense_kernel=dense_kernel)
+
+
+def _add_thresholds(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--min-count", type=int, default=0, metavar="N",
+                   help="suppress output of k-mers with count < N "
+                        "(KMC -ci)")
+    p.add_argument("--max-count", type=int, default=0, metavar="N",
+                   help="suppress output of k-mers with count > N "
+                        "(KMC -cx; 0 = off)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     from findkmer_torch.version import __version__
 
@@ -380,12 +446,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     pc = sub.add_parser("count", help="count k-mers, emit spectrum")
     _add_common(pc)
-    pc.add_argument("--min-count", type=int, default=0, metavar="N",
-                    help="suppress output of k-mers with count < N "
-                         "(KMC -ci)")
-    pc.add_argument("--max-count", type=int, default=0, metavar="N",
-                    help="suppress output of k-mers with count > N "
-                         "(KMC -cx; 0 = off)")
+    _add_thresholds(pc)
     pc.add_argument("--per-input", action="store_true",
                     help="one spectrum file per input (-o names a "
                          "directory; files are <input-stem>.tsv)")
@@ -394,6 +455,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "as '>header' sections in one output stream")
     _add_device(pc, "count on")
     pc.set_defaults(fn=cmd_count)
+
+    ps = sub.add_parser("stream", help="streaming count with checkpointing")
+    _add_common(ps)
+    _add_thresholds(ps)
+    ps.add_argument("--checkpoint", default=None,
+                    help="checkpoint directory (enables resume)")
+    ps.add_argument("--checkpoint-every", type=int, default=64,
+                    help="batches between checkpoints")
+    ps.add_argument("--num-processes", type=int, default=None,
+                    help="multi-host: total host processes "
+                         "(env FINDKMER_NUM_PROCESSES)")
+    ps.add_argument("--process-id", type=int, default=None,
+                    help="multi-host: this host's index "
+                         "(env FINDKMER_PROCESS_ID)")
+    ps.add_argument("--coordinator", default=None,
+                    help="multi-host: coordinator address of a process "
+                         "group (env FINDKMER_COORDINATOR; not yet "
+                         "ported).  Without it each host emits a partial "
+                         "spectrum")
+    _add_device(ps, "count on")
+    ps.set_defaults(fn=cmd_stream)
 
     pst = sub.add_parser(
         "selftest",

@@ -5,14 +5,17 @@ defaults, so the port resolves the same table mode and the same store and
 batch geometry as the reference it is held against.  All knobs live in one
 frozen dataclass that the CLI constructs and the pipeline
 threads through explicitly: no global flag registry, no ambient state.
-Fields that only unported paths read (devices, merge, spill_dir,
+Fields that only unported paths read (devices, merge,
 route_capacity_factor) are kept so that a Config carries over field for
-field; the port's entry points refuse the values they cannot honour.
+field, and `to_json` writes the same string as the reference's (the
+checkpoint manifest stores it, and either package loads the other's); the
+port's entry points refuse the values they cannot honour.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 
 
@@ -62,8 +65,7 @@ class Config:
     spill_dir: str = ""
     # Disk-spill directory ("" = off, sparse mode only): crossing
     # sparse_capacity distinct k-mers spills the compacted store to a
-    # sorted run file instead of raising.  Not yet ported: the CLI
-    # refuses it.
+    # sorted run file instead of raising (spill.py).
     sparse_expected_entries: int = 0
     # Optional hint: expected total windows (~input bases).  When set
     # (the CLI sets it from input file sizes) the raw buffer is
@@ -165,6 +167,19 @@ class Config:
         """Device row length: k-1 halo bases + chunk_len owned bases."""
         return self.chunk_len + self.k - 1
 
+    @property
+    def needs_wide_codes(self) -> bool:
+        """True when a window code exceeds 31 bits (k > 15): int64 codes
+        in the port, (hi, lo) pairs in a checkpoint's planes."""
+        return self.k > 15
+
     # ------------------------------------------------------------------
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls(**json.loads(s))

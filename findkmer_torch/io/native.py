@@ -119,6 +119,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fk_fastq_scan.restype = i64
     lib.fk_filter_gather_prepare.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
     lib.fk_filter_gather_prepare.restype = None
+    for name in ("fk_merge_runs64", "fk_merge_runs32",
+                 "fk_merge_runs64_mt", "fk_merge_runs32_mt"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ptr), ctypes.POINTER(ptr), ptr,
+                       ctypes.c_int, ptr, ptr]
+        fn.restype = size
 
 
 def available() -> bool:
@@ -208,6 +214,48 @@ def format_spectrum(codes: np.ndarray, counts: np.ndarray, k: int,
     m = lib.fk_format_spectrum(_ptr(codes), _ptr(counts), n, k, sep[0],
                                _ptr(out))
     return out[: int(m)]
+
+
+MERGE_MAX_RUNS = 256  # fk_merge_runs' own limit
+
+
+def merge_runs(runs):
+    """G-way merge of sorted (codes u64, counts) runs, summing counts of
+    equal codes -> (codes u64, counts i64) sorted distinct arrays.
+
+    `runs` is a list of (codes, counts) pairs, each sorted ascending by
+    code with no duplicates within a run, at most MERGE_MAX_RUNS of them.
+    One heap-merge C pass: the host-side tail of the row store (its rows
+    are independent sorted runs) and of the disk spill's block merge."""
+    lib = _require()
+    runs = [
+        (np.ascontiguousarray(c, dtype=np.uint64), np.ascontiguousarray(n))
+        for c, n in runs
+        if c.size
+    ]
+    G = len(runs)
+    if G == 0:
+        return np.empty(0, np.uint64), np.empty(0, np.int64)
+    if G > MERGE_MAX_RUNS:
+        raise ValueError(
+            f"merge_runs takes up to {MERGE_MAX_RUNS} runs, got {G}")
+    # 64-bit when ANY run carries 64-bit counts: keying on runs[0] alone
+    # would silently downcast a later run's > 2^31 count
+    is64 = any(n.dtype.itemsize == 8 for _, n in runs)
+    cdt = np.int64 if is64 else np.int32
+    runs = [(c, n.astype(cdt, copy=False)) for c, n in runs]
+    code_ptrs = (ctypes.c_void_p * G)(*[c.ctypes.data for c, _ in runs])
+    cnt_ptrs = (ctypes.c_void_p * G)(*[n.ctypes.data for _, n in runs])
+    lens = np.array([c.size for c, _ in runs], dtype=np.uintp)
+    total = int(lens.sum())
+    out_codes = np.empty(total, np.uint64)
+    out_counts = np.empty(total, np.int64)
+    fn = lib.fk_merge_runs64_mt if is64 else lib.fk_merge_runs32_mt
+    m = int(fn(code_ptrs, cnt_ptrs, _ptr(lens), G, _ptr(out_codes),
+               _ptr(out_counts)))
+    if m == (1 << 64) - 1:  # (size_t)-1
+        raise RuntimeError("fk_merge_runs failed (run count/size guard)")
+    return out_codes[:m], out_counts[:m]
 
 
 def fastq_scan(buf: np.ndarray, max_rec: int = 0):

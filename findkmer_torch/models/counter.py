@@ -38,15 +38,21 @@ package's log-structured store.
   * finalize: one flat sort of the live entries, run totals, and the
     distinct sorted spectrum pulled to the host in chunks through pinned
     buffers, each chunk's copy in flight while the host formats the one
-    before.
+    before.  FINDKMER_ORDERED_FINALIZE=0 takes the heap-merge finalize
+    instead: the squeezed row store is pulled as it is and its G rows are
+    merged on the host in C (`ops/sparse.store_to_host_2d`); same
+    spectrum, an A/B route.
+  * disk spill (Config.spill_dir; `spill.py`): a compaction that finds
+    the exact distinct count past sparse_capacity writes the store to a
+    sorted run file and restarts it from the raw buffer alone; finalize
+    is then a streaming k-way merge of the runs and the residual store,
+    and deletes the runs it consumed.
 Codes are one integer (int32 for k <= 15, int64 above; `ops/window.py`).
-Not yet ported: the disk spill (--spill), the legacy heap-merge finalize
-(FINDKMER_ORDERED_FINALIZE=0) and multi-device counting.
+Not yet ported: multi-device counting.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 from dataclasses import dataclass
@@ -55,6 +61,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from findkmer_torch import spill
 from findkmer_torch import table as table_mod
 from findkmer_torch.config import Config
 from findkmer_torch.models import rowstore
@@ -67,6 +74,7 @@ from findkmer_torch.ops.cuda.histogram_kernel import MAX_K, add_counts_cuda
 from findkmer_torch.ops.cuda.window_histogram_kernel import (
     add_window_counts_cuda,
 )
+from findkmer_torch.utils.prof import phases
 
 # Minimum row count of the store (the JAX package's STORE_ROWS) and the
 # column ladder floor: the same geometry as the reference store.
@@ -173,16 +181,17 @@ class KmerCounter(RowStoreMixin):
                 f"{dense_kernel!r}"
             )
         self.dense_kernel = dense_kernel
+        self._spill_n = 0  # spill runs written (or adopted) so far
         if cfg.spill_dir:
             if self.mode != "sparse":
                 raise ValueError(
                     "--spill requires a sparse table "
                     f"(k={cfg.k} resolves to a direct table)"
                 )
-            raise NotImplementedError(
-                "--spill is not yet ported to findkmer_torch (ROADMAP.md "
-                "Queue 1 item 8)"
-            )
+            # stale runs are refused in init_state (a fresh count) or
+            # adopt_spill_runs (a checkpoint resume), not here: the
+            # constructor cannot know which follows
+            os.makedirs(cfg.spill_dir, exist_ok=True)
         if self.mode == "direct":
             self._method = self._dense_method(cfg)
             return
@@ -251,6 +260,14 @@ class KmerCounter(RowStoreMixin):
     def init_state(self):
         if self.mode == "direct":
             return table_mod.make_table(self.cfg, self.device)
+        if self._spill_n:
+            raise RuntimeError(
+                "this counter already spilled runs for a previous "
+                "state; use a fresh counter (and an empty spill dir) "
+                "per count"
+            )
+        if self.cfg.spill_dir:
+            spill.init_dir(self.cfg.spill_dir)  # refuses stale runs
         return SparseState(raw=self._fresh(self._raw_cap0()))
 
     def step(self, state, batch):
@@ -314,8 +331,19 @@ class KmerCounter(RowStoreMixin):
             d = rowstore.host_distinct(state.distinct)
             if self._distinct_total(d) > cfg.sparse_capacity:
                 # the sum counts store ENTRIES; only the exact distinct
-                # count may decide the capacity error
+                # count may decide a spill or the capacity error
                 state, d = self._dedup_state(state)
+            if (cfg.spill_dir
+                    and self._distinct_total(d) > cfg.sparse_capacity):
+                # disk spill: the sorted store becomes a run file, and
+                # the store restarts from the raw buffer alone
+                self._spill_store(state.store)
+                state = dataclasses.replace(state, store=None)
+                store, drows = compaction.compact_raw_rows(
+                    state.raw, G, cap // G, cdt, self._plain_sort)
+                return SparseState(raw=self._fresh(cap), fill=0,
+                                   store=store, store_len=cap // G,
+                                   distinct=drows)
             self._check_capacity(self._distinct_total(d))
             store, store_cols = state.store, state.store_len
             Ldc = sparse_ops.ladder(int(d.max()), floor=COL_FLOOR)
@@ -334,18 +362,102 @@ class KmerCounter(RowStoreMixin):
         """Force a compaction (checkpoint / bench)."""
         return self.compact(state)
 
+    def _spill_store(self, store):
+        """Pull the compacted store as one globally sorted distinct run
+        and persist it as the next spill run."""
+        codes, counts = _pull_owned(*sparse_ops.global_compact(*store))
+        spill.write_run(self.cfg.spill_dir, self._spill_n, codes, counts)
+        self._spill_n += 1
+
+    def _merged_spill_chunks(self, state, ph):
+        """Streaming k-way merge of the spill runs with the residual
+        store (spill.iter_merged): sorted distinct host chunks.  The run
+        files are deleted once the merge has consumed them, so a SECOND
+        finalize of a spilled state is an error, never a spectrum without
+        its runs."""
+        runs = spill.load_runs(self.cfg.spill_dir)
+        if not runs:
+            raise RuntimeError(
+                "spill runs missing (already consumed by a previous "
+                "finalize, or deleted); rerun the count"
+            )
+        with ph("finalize/residual_pull"):
+            # owned arrays: the merge reads the residual run block by
+            # block, long after a pinned chunk buffer would be reused
+            runs.append(_pull_owned(
+                *sparse_ops.global_compact(*state.store)))
+        merged = spill.iter_merged(runs)
+        while True:
+            with ph("finalize/merge"):
+                block = next(merged, None)
+            if block is None:
+                break
+            yield block
+        spill.remove_runs(self.cfg.spill_dir)  # consumed: free the disk
+
+    def _store_to_host(self, store, ph):
+        """Row store -> host (codes uint64 sorted distinct, counts int64)
+        by the heap merge: pull the planes as they are, strip each row's
+        holes and merge the G rows in one C pass."""
+        with ph("finalize/d2h"):
+            codes, cnt = (a.cpu().numpy() for a in store)
+        with ph("finalize/merge"):
+            return sparse_ops.store_to_host_2d(codes, cnt)
+
     # ------------------------------------------------------------------
     def finalize(self, state, timers=None):
         """The spectrum on the host: dense -> np counts (4^k,); sparse ->
-        (codes uint64, counts int64), sorted and distinct."""
+        (codes uint64, counts int64), sorted and distinct.
+
+        The sparse default gathers `finalize_chunks` (the ordered
+        finalize, or the spill merge).  FINDKMER_ORDERED_FINALIZE=0 takes
+        the heap-merge finalize of an unspilled store instead."""
         if self.mode == "direct":
             return state.to_host()
+        ph = phases(timers)
+        # compact FIRST: the finalize's own compaction may write the first
+        # spill run, and only then is `_spill_n` the route's truth
+        state, d = self._compacted(state, ph)
+        if (not self._spill_n
+                and os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1"):
+            return self._finalize_heap_merge(state, d, ph)
         parts = [(c.copy(), n.copy())
-                 for c, n in self.finalize_chunks(state, timers=timers)]
+                 for c, n in self._sorted_chunks(state, ph)]
         if not parts:
             return np.empty(0, np.uint64), np.empty(0, np.int64)
         return (np.concatenate([c for c, _ in parts]),
                 np.concatenate([n for _, n in parts]))
+
+    def _compacted(self, state, ph):
+        """(state, per-row distinct counts) with the raw buffer folded in
+        and the capacity checked: the front of every finalize."""
+        with ph("finalize/compact"):
+            state = self.compact(state)
+            return self._ensure_capacity(state)
+
+    def _finalize_heap_merge(self, state, d, ph):
+        """The heap-merge finalize of a compacted, unspilled state."""
+        with ph("finalize/squeeze"):
+            # holes squeezed out and rows cut to the live ladder before
+            # the pull: one more row sort, fewer bytes to pull and strip.
+            # The squeeze sorts the counts in place, so it gets a copy:
+            # finalize leaves the state as it was.
+            store = state.store
+            Ldc = sparse_ops.ladder(int(d.max()), floor=COL_FLOOR)
+            if state.store_len > Ldc:
+                store = compaction.squeeze_slice(
+                    (store[0], store[1].clone()), Ldc, self._plain_sort)
+        return self._store_to_host(store, ph)
+
+    def _sorted_chunks(self, state, ph):
+        """Chunks of a compacted state: the spill merge when runs were
+        written, else the ordered finalize's chunked pull."""
+        if self._spill_n:
+            yield from self._merged_spill_chunks(state, ph)
+            return
+        with ph("finalize/global_sort"):
+            codes, counts = sparse_ops.global_compact(*state.store)
+        yield from _pull_chunks(codes, counts, ph)
 
     def finalize_chunks(self, state, timers=None):
         """The sparse spectrum as host chunks (codes uint64, counts int64)
@@ -359,15 +471,9 @@ class KmerCounter(RowStoreMixin):
         before."""
         if self.mode == "direct":
             raise ValueError("finalize_chunks is for sparse tables")
-        ph = timers.phase if timers is not None else (
-            lambda name: contextlib.nullcontext()
-        )
-        with ph("finalize/compact"):
-            state = self.compact(state)
-            state, _ = self._ensure_capacity(state)
-        with ph("finalize/global_sort"):
-            codes, counts = sparse_ops.global_compact(*state.store)
-        yield from _pull_chunks(codes, counts, ph)
+        ph = phases(timers)
+        state, _ = self._compacted(state, ph)
+        yield from self._sorted_chunks(state, ph)
 
     # ------------------------------------------------------------------
     def table_state(self, state):
@@ -404,6 +510,19 @@ class KmerCounter(RowStoreMixin):
         store, Lc, drows = self._restore_planes(table)
         return SparseState(raw=self._fresh(self._raw_cap0()), store=store,
                            store_len=Lc, distinct=drows)
+
+
+def _pull_owned(codes: torch.Tensor, counts: torch.Tensor):
+    """A device spectrum on the host as arrays of its own (codes uint64,
+    counts int64), gathered from `_pull_chunks`."""
+    out_c = np.empty(codes.shape[0], np.uint64)
+    out_n = np.empty(codes.shape[0], np.int64)
+    at = 0
+    for c, n in _pull_chunks(codes, counts, phases(None)):
+        out_c[at : at + c.size] = c
+        out_n[at : at + c.size] = n
+        at += c.size
+    return out_c, out_n
 
 
 def _chunk_spans(n: int):

@@ -6,8 +6,6 @@ engine.  The geometry contract is the JAX package's: a store is
 `distinct` is the per-row distinct vector of the last compaction.  The
 capacity metric is the largest per-group sum, because sparse_capacity
 bounds the DISTINCT k-mers resident on one device.
-
-`adopt_spill_runs` waits for the spill slice (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from findkmer_torch import spill
 from findkmer_torch import table as table_mod
 from findkmer_torch.ops import compaction
 from findkmer_torch.ops import sparse as sparse_ops
@@ -35,46 +34,32 @@ def grow_raw(raw: torch.Tensor, new_cap: int) -> torch.Tensor:
     return torch.cat([raw, tail])
 
 
-def merge_host_entries(codes: np.ndarray, counts: np.ndarray):
-    """Host entries with repeats -> (codes uint64 sorted distinct, counts
-    int64 summed)."""
-    codes = codes.astype(np.uint64, copy=False)
-    counts = counts.astype(np.int64, copy=False)
-    if codes.size == 0:
-        return codes, counts
-    order = np.argsort(codes, kind="stable")
-    codes, counts = codes[order], counts[order]
-    starts = np.flatnonzero(np.concatenate([[True], codes[1:] != codes[:-1]]))
-    return codes[starts], np.add.reduceat(counts, starts)
-
-
 def table_entries(table, k: int):
-    """Any sparse table's live entries on the host: (codes uint64,
-    counts), repeats possible.  Takes the port's SparseTable (codes,
-    counts) or one with host planes (hi, lo, cnt), such as the JAX
-    counter's `table_state`: its codes are (hi << 32) | lo; sentinels and
-    holes carry count 0 and are stripped by count, whatever their code
-    planes hold."""
+    """Any sparse table's entries as flat tensors (codes, counts), repeats
+    possible; slots with count 0 are dead, whatever their code.  Takes the
+    port's SparseTable (codes, counts), as it is, or one with host planes
+    (hi, lo, cnt), such as the JAX counter's `table_state` or a loaded
+    checkpoint: its codes are (hi << 32) | lo, and its sentinels and holes
+    are stripped here BY COUNT (a real k >= 16 code can have lo =
+    0xFFFFFFFF), so only live entries are widened."""
     if table.k != k:
         raise ValueError(f"table is for k={table.k}, counter for k={k}")
     if hasattr(table, "codes"):
-        codes = torch.as_tensor(table.codes).cpu().numpy()
-        cnt = torch.as_tensor(table.counts).cpu().numpy()
-        live = cnt > 0
-        return codes[live].astype(np.uint64), cnt[live]
-    hi = np.asarray(table.hi)
-    lo = np.asarray(table.lo)
+        return (torch.as_tensor(table.codes).reshape(-1),
+                torch.as_tensor(table.counts).reshape(-1))
     cnt = np.asarray(table.cnt)
     live = cnt > 0
-    codes = (hi[live].astype(np.uint64) << np.uint64(32)) | lo[live].astype(
-        np.uint64)
-    return codes, cnt[live]
+    codes = np.asarray(table.lo)[live].astype(np.int64)
+    if k > 15:
+        codes |= np.asarray(table.hi)[live].astype(np.int64) << 32
+    return torch.from_numpy(codes), torch.from_numpy(cnt[live])
 
 
 class RowStoreMixin:
     """Capacity / dedup / table logic of the sparse engine.
 
-    Subclass contract: `self.cfg`, `self.device`, `self._plain_sort` and
+    Subclass contract: `self.cfg`, `self.device`, `self._plain_sort`,
+    `self._spill_n` (spill runs written so far) and
     `_dedup_geometry() -> (D, R, col_floor)`.  State objects are
     dataclasses with fields (raw, fill, store, store_len, distinct)."""
 
@@ -111,6 +96,8 @@ class RowStoreMixin:
         return st, d
 
     def _check_capacity(self, distinct: int):
+        if self.cfg.spill_dir:
+            return  # spilling bounds the store instead of erroring
         if distinct > self.cfg.sparse_capacity:
             D, _, _ = self._dedup_geometry()
             where = " on one device" if D > 1 else ""
@@ -140,22 +127,81 @@ class RowStoreMixin:
         """A sparse table from any engine -> ((codes, counts) store on
         this counter's device, Lc, per-row distinct), re-dealt as D * R
         contiguous sorted rows of one merged distinct run, so that rows
-        hold globally disjoint code ranges."""
+        hold globally disjoint code ranges.  The live entries merge on the
+        device (`global_compact`: one flat sort), where they are bound
+        anyway."""
         D, R, floor = self._dedup_geometry()
         G = D * R
-        codes, counts = merge_host_entries(
-            *table_entries(table, self.cfg.k))
-        n = codes.size
-        Lc = sparse_ops.ladder(-(-n // G) if n else 1, floor=floor)
         cdt = code_dtype(self.cfg.k)
-        plane = torch.full((G * Lc,), sentinel(cdt), dtype=cdt)
-        plane[:n] = torch.from_numpy(codes.astype(np.int64))
-        cnt = torch.zeros(G * Lc, dtype=table_mod.count_dtype(self.cfg))
-        cnt[:n] = torch.from_numpy(counts)
-        drows = np.bincount(np.arange(n) // Lc, minlength=G).astype(np.int64)
-        store = (plane.reshape(G, Lc).to(self.device),
-                 cnt.reshape(G, Lc).to(self.device))
-        return store, Lc, drows
+        codes, counts = table_entries(table, self.cfg.k)
+        codes, counts = sparse_ops.global_compact(
+            codes.to(self.device, cdt),
+            counts.to(self.device, table_mod.count_dtype(self.cfg)))
+        n = codes.numel()
+        Lc = sparse_ops.ladder(-(-n // G) if n else 1, floor=floor)
+        plane = fresh_raw(G * Lc, cdt, self.device)
+        plane[:n] = codes
+        cnt = torch.zeros(G * Lc, dtype=counts.dtype, device=self.device)
+        cnt[:n] = counts
+        # row g holds entries [g * Lc, (g + 1) * Lc) of the n merged ones
+        drows = np.clip(n - np.arange(G, dtype=np.int64) * Lc, 0, Lc)
+        return (plane.reshape(G, Lc), cnt.reshape(G, Lc)), Lc, drows
+
+    def adopt_spill_runs(self, n_runs: int, token: str | None = None):
+        """Checkpoint-resume adoption of disk-spill runs.
+
+        The checkpoint manifest records how many spill runs belong to
+        its prefix (streaming.py); runs past that index were written by
+        a later, crashed stream whose batches will be REPLAYED: they are
+        deleted here, or the spectrum would count them twice.  Fewer runs
+        than the manifest promises is unrecoverable.
+
+        `token` is the stream-identity token the checkpoint recorded
+        (spill.write_token at init_dir time): any run files present when
+        it does NOT match the dir's token belong to a DIFFERENT count.
+        Adopting them would corrupt the spectrum and deleting them would
+        destroy someone else's crash state, so both are refused."""
+        if n_runs and not self.cfg.spill_dir:
+            raise ValueError(
+                f"checkpoint recorded {n_runs} spill runs but --spill "
+                "is off; rerun with the original --spill DIR"
+            )
+        if not self.cfg.spill_dir:
+            return
+        have = len(spill.load_runs(self.cfg.spill_dir))
+        dir_token = spill.read_token(self.cfg.spill_dir)
+        same = (
+            token is not None and dir_token is not None
+            and token == dir_token
+        )
+        # state from before the tokens existed (neither side has an
+        # identity) with an EXACT run-count match resumes as it did then:
+        # the guard stops adopting or deleting a DIFFERENT count's runs,
+        # it must not strand old checkpoints
+        legacy_exact = (
+            token is None and dir_token is None and have == n_runs
+        )
+        if (have or n_runs) and not (same or legacy_exact):
+            raise RuntimeError(
+                f"spill dir {self.cfg.spill_dir!r} holds run files "
+                "from a different stream than this checkpoint "
+                "(identity token mismatch); refusing to adopt or "
+                "delete them — resume with the original --spill DIR, "
+                "or point --spill at an empty directory"
+            )
+        if have < n_runs:
+            raise RuntimeError(
+                f"checkpoint expects {n_runs} spill runs in "
+                f"{self.cfg.spill_dir!r} but only {have} exist; the "
+                "spill dir was truncated — restart the count"
+            )
+        if have > n_runs:
+            spill.remove_runs_from(self.cfg.spill_dir, n_runs)
+        if dir_token is None:
+            # resumed into a fresh dir (no runs yet): re-stamp the
+            # stream's identity so later checkpoints stay consistent
+            spill.write_token(self.cfg.spill_dir, token)
+        self._spill_n = n_runs
 
 
 def host_distinct(d) -> np.ndarray:

@@ -10,7 +10,10 @@ codes).  Duplicates keep their code with count 0 ("holes"), so a row
 stays sorted and can re-enter the next sort unchanged; `squeeze_2d` pushes
 the holes to the row ends.  `global_compact` is the finalize: one flat
 sort of the live entries and one entry per run, with its total: the
-distinct sorted spectrum.
+distinct sorted spectrum.  `merge_host_runs` and `store_to_host_2d` are
+the host-side merges: of sorted runs (the disk spill's blocks, several
+hosts' partial spectra) and of a pulled row store (the heap-merge
+finalize).
 
 Codes are one signed integer (`window.code_dtype`) whose max value
 (`window.sentinel`) marks empty slots: the JAX (hi, lo) pair, its u16 hi
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from findkmer_torch.ops.cuda.rowsort_kernel import sort_rows
@@ -149,3 +153,56 @@ def global_compact(
     tot = torch.cumsum(vals, 0, dtype=torch.int64)[ends]
     tot = torch.diff(tot, prepend=tot.new_zeros(1))
     return keys[ends], tot.to(cnt.dtype)
+
+
+def merge_host_runs(runs):
+    """G-way merge of sorted distinct (codes u64, counts) runs on the
+    host, summing the counts of codes that several runs hold -> (codes
+    uint64 sorted distinct, counts int64).
+
+    One C heap-merge pass (`io/native.merge_runs`) where the C library is
+    built, over 256 runs at a time and then over the partial results; a
+    numpy sort otherwise.  A single run passes through unchanged."""
+    runs = [(c, n) for c, n in runs if c.size]
+    if not runs:
+        return np.empty(0, np.uint64), np.empty(0, np.int64)
+    if len(runs) == 1:
+        c, n = runs[0]
+        return (c.astype(np.uint64, copy=False),
+                n.astype(np.int64, copy=False))
+    from findkmer_torch.io import native
+
+    if native.available():
+        step = native.MERGE_MAX_RUNS
+        if len(runs) <= step:
+            return native.merge_runs(runs)
+        return merge_host_runs([native.merge_runs(runs[i : i + step])
+                                for i in range(0, len(runs), step)])
+    codes = np.concatenate([c for c, _ in runs]).astype(np.uint64,
+                                                        copy=False)
+    cnts = np.concatenate([n for _, n in runs]).astype(np.int64, copy=False)
+    order = np.argsort(codes, kind="stable")
+    codes, cnts = codes[order], cnts[order]
+    starts = np.flatnonzero(np.concatenate([[True], codes[1:] != codes[:-1]]))
+    return codes[starts], np.add.reduceat(cnts, starts)
+
+
+def store_to_host_2d(codes: np.ndarray, cnt: np.ndarray):
+    """A pulled row store (G, C) -> (codes uint64 sorted distinct, counts
+    int64).
+
+    Each row is sorted and run-length encoded, but rows may share codes:
+    strip each row's holes and padding BY COUNT (a slot's code says
+    nothing: a hole keeps its code) and heap-merge the G runs."""
+    codes = np.asarray(codes)
+    cnt = np.asarray(cnt)
+    live = cnt > 0
+    # one strip of the whole store: its live entries in row-major order
+    # are the rows' runs end to end, cut at the rows' live counts (and
+    # only live entries pay the widening copy)
+    ends = np.cumsum(live.sum(axis=1))
+    flat_codes = codes[live].astype(np.uint64)
+    flat_cnt = cnt[live]
+    runs = [(flat_codes[a:b], flat_cnt[a:b])
+            for a, b in zip(ends - np.diff(ends, prepend=0), ends) if b > a]
+    return merge_host_runs(runs)

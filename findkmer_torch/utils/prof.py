@@ -34,3 +34,10 @@ class PhaseTimers:
             name: {"total_s": self.totals[name], "calls": self.counts[name]}
             for name in sorted(self.totals)
         }
+
+
+def phases(timers):
+    """`timers.phase`, or a no-op stand-in when there are no timers."""
+    if timers is not None:
+        return timers.phase
+    return lambda name: contextlib.nullcontext()

@@ -160,15 +160,24 @@ def test_restore_state_checks_k_and_moves_tensors():
 
 @pytest.mark.parametrize("cfg, err", [
     (Config(k=12, devices=2), NotImplementedError),
-    (Config(k=6, table_mode="sparse", spill_dir="unused"),
-     NotImplementedError),
+    (Config(k=6, table_mode="sparse", spill_dir="unused"), None),
     (Config(k=6, devices=2), NotImplementedError),
     (Config(k=6, spill_dir="unused"), ValueError),
     (Config(k=11, table_mode="direct", hist="pallas"), ValueError),
 ])
-def test_unported_or_invalid_configs_raise(cfg, err):
-    with pytest.raises(err):
-        make_counter(cfg, CPU)
+def test_unported_or_invalid_configs_raise(cfg, err, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    if err is not None:
+        with pytest.raises(err):
+            make_counter(cfg, CPU)
+        assert not (tmp_path / "unused").exists()
+        return
+    # the disk spill on a forced sparse table: the counter takes the
+    # config, makes the spill dir and stamps it at the first state
+    counter = make_counter(cfg, CPU)
+    assert counter.mode == "sparse" and counter._spill_n == 0
+    counter.init_state()
+    assert (tmp_path / "unused" / "stream.token").exists()
 
 
 @pytest.fixture(scope="module")

@@ -85,6 +85,47 @@ def test_cli_per_record_never_imports_jax(fixtures_dir, tmp_path):
     assert out.read_text().splitlines() == want
 
 
+@pytest.mark.parametrize("extra", [
+    ["-k", "8"],
+    ["-k", "21", "--canonical", "--spill", "sp", "--sparse-capacity", "4096",
+     "--sparse-compact-entries", "8192", "--chunk-len", "1024",
+     "--batch-rows", "4"],
+], ids=["dense", "sparse-spill"])
+def test_cli_stream_never_imports_jax(fixtures_dir, tmp_path, extra):
+    """`stream` with checkpoints, run and then resumed, in a fresh
+    interpreter each; and once with the spill and its C merge (a finished
+    spilled stream has consumed its runs and cannot resume)."""
+    path = os.path.join(fixtures_dir, "ecoli_frag.fa")
+    out = tmp_path / "o.tsv"
+    for _ in range(1 if "--spill" in extra else 2):
+        _without_jax(
+            "from findkmer_torch.cli import main\n"
+            f"rc = main(['stream', '-i', {path!r}, '--device', 'cpu', '-o',"
+            f" {str(out)!r}, '--checkpoint', 'ck', '--checkpoint-every', '3']"
+            f" + {extra!r})\n"
+            "assert rc == 0, rc\n"
+            "import findkmer_torch.streaming, findkmer_torch.spill\n"
+            "import findkmer_torch.utils.checkpoint\n"
+            "import findkmer_torch.utils.logging\n"
+            "import findkmer_torch.parallel.multihost\n",
+            tmp_path,
+        )
+    k = int(extra[1])
+    counts = count_fasta_file(path, k, canonical="--canonical" in extra)
+    assert out.read_text().splitlines() == spectrum_lines(counts, k)
+    assert (tmp_path / "ck" / "latest.json").exists()
+
+
+def test_heap_merge_finalize_never_imports_jax(fixtures_dir, tmp_path,
+                                               monkeypatch):
+    monkeypatch.setenv("FINDKMER_ORDERED_FINALIZE", "0")
+    path = os.path.join(fixtures_dir, "multi.fa")
+    out = tmp_path / "o.tsv"
+    _cli_without_jax(path, out, ["-k", "17"], tmp_path)
+    assert out.read_text().splitlines() == spectrum_lines(
+        count_fasta_file(path, 17), 17)
+
+
 def test_selftest_never_imports_jax(tmp_path):
     out = _without_jax(
         "from findkmer_torch.cli import main\n"
@@ -118,6 +159,9 @@ def test_port_sources_do_not_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|findkmer_tpu)\b", re.M)
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
+    for new in ("streaming.py", "spill.py", "utils/checkpoint.py",
+                "utils/logging.py", "parallel/multihost.py"):
+        assert PORT / new in sources
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pat.search(p.read_text())]
     assert offenders == []

@@ -27,7 +27,10 @@ import findkmer_tpu.io.native as jax_native
 import findkmer_tpu.io.sam as jax_sam
 import findkmer_tpu.output as jax_output
 import findkmer_tpu.pipeline as jax_pipeline
+import findkmer_tpu.parallel.multihost as jax_multihost
 import findkmer_tpu.selftest as jax_selftest
+import findkmer_tpu.spill as jax_spill
+import findkmer_tpu.utils.logging as jax_logging
 import findkmer_tpu.spectra as jax_spectra
 import findkmer_tpu.version as jax_version
 import findkmer_torch
@@ -42,7 +45,10 @@ import findkmer_torch.io.native as native
 import findkmer_torch.io.sam as sam
 import findkmer_torch.output as output
 import findkmer_torch.pipeline as pipeline
+import findkmer_torch.parallel.multihost as multihost
 import findkmer_torch.selftest as selftest
+import findkmer_torch.spill as spill
+import findkmer_torch.utils.logging as port_logging
 import findkmer_torch.version as version
 from findkmer_torch.utils import directio, malloc_tuning, prof, shmalloc
 from test_sam import make_bam, make_sam
@@ -111,6 +117,142 @@ def test_config_rejects_what_the_original_rejects(bad):
     with pytest.raises(ValueError) as got:
         config.Config(**bad)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("fields", [
+    {}, dict(k=21, canonical=True, spill_dir="runs/x", sparse_capacity=77),
+    dict(k=12, table_mode="sparse", count_dtype="int64", sep=" : ",
+         route_capacity_factor=1.25, min_count=2, input_format="fastq",
+         min_qual=20),
+], ids=["defaults", "spill", "mixed"])
+def test_config_json_equal(fields):
+    """to_json is what a checkpoint's manifest stores: the same string as
+    the reference's, so that each package rebuilds the other's Config."""
+    cfg = config.Config(**fields)
+    ref = jax_config.Config(**fields)
+    assert cfg.to_json() == ref.to_json()
+    assert config.Config.from_json(ref.to_json()) == cfg
+    assert dataclasses.asdict(jax_config.Config.from_json(cfg.to_json())) \
+        == dataclasses.asdict(cfg)
+    for k in (15, 16):
+        assert config.Config(k=k).needs_wide_codes == \
+            jax_config.Config(k=k).needs_wide_codes == (k > 15)
+
+
+@pytest.mark.parametrize("level", [None, "DEBUG", "info", "ERROR"])
+def test_get_logger_reads_the_level(monkeypatch, level):
+    """--log sets FINDKMER_LOGLEVEL; the first get_logger reads it, as the
+    original's does (both configure the one "findkmer" logger)."""
+    import logging
+
+    if level is None:
+        monkeypatch.delenv("FINDKMER_LOGLEVEL", raising=False)
+    else:
+        monkeypatch.setenv("FINDKMER_LOGLEVEL", level)
+    root = logging.getLogger("findkmer")
+    before = (root.level, list(root.handlers))
+    try:
+        levels = []
+        for mod in (jax_logging, port_logging):
+            monkeypatch.setattr(mod, "_CONFIGURED", False)
+            root.handlers.clear()
+            log = mod.get_logger("findkmer.stream")
+            assert log.name == "findkmer.stream" and log.parent is root
+            assert len(root.handlers) == 1
+            assert mod.get_logger() is root and len(root.handlers) == 1
+            levels.append((root.level, root.handlers[0].formatter._fmt))
+        assert levels[0] == levels[1]
+        assert levels[1][0] == getattr(logging, (level or "WARNING").upper())
+    finally:
+        root.setLevel(before[0])
+        root.handlers[:] = before[1]
+
+
+# ---- spill, multihost -------------------------------------------------------
+
+def test_spill_functions_equal(tmp_path):
+    """spill.py function by function: the two packages write the same
+    bytes under the same names and read each other's state."""
+    rng = np.random.default_rng(9)
+    dirs = {}
+    for name, mod in (("ours", spill), ("theirs", jax_spill)):
+        d = str(tmp_path / name)
+        dirs[name] = d
+        mod.init_dir(d)
+        assert len(mod.read_token(d)) == 32
+        assert mod.write_token(d, "tok") == "tok" == mod.read_token(d)
+        assert not mod._any_run_files(d)
+        gen = np.random.default_rng(9)
+        for i in (0, 1, 2, 4):
+            codes = np.unique(gen.integers(0, 1 << 50, 300).astype(np.uint64))
+            counts = gen.integers(1, 1 << 33, codes.size)
+            mod.write_run(d, i, codes, counts.astype(np.int32 if i else
+                                                     np.int64))
+        assert mod._any_run_files(d)
+        assert mod._run_paths(d, 7) == (
+            os.path.join(d, "run00007.codes.npy"),
+            os.path.join(d, "run00007.counts.npy"))
+    names = sorted(os.listdir(dirs["ours"]))
+    assert names == sorted(os.listdir(dirs["theirs"]))
+    for n in names:
+        assert open(os.path.join(dirs["ours"], n), "rb").read() == \
+            open(os.path.join(dirs["theirs"], n), "rb").read()
+    ours, theirs = spill.load_runs(dirs["theirs"]), \
+        jax_spill.load_runs(dirs["ours"])
+    assert len(ours) == len(theirs) == 3  # the walk stops at the gap
+    for block in (50, 1 << 22):
+        for (a, b), (c, d) in zip(spill.iter_merged(ours, block),
+                                  jax_spill.iter_merged(theirs, block)):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, d)
+    parts = [np.asarray(c[:40]) for c, _ in ours], \
+        [np.asarray(n[:40]) for _, n in ours]
+    for a, b in zip(spill._merge_block(*parts), jax_spill._merge_block(*parts)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for mod, d in ((spill, dirs["theirs"]), (jax_spill, dirs["ours"])):
+        with pytest.raises(ValueError, match="already contains run files"):
+            mod.init_dir(d)
+        mod.remove_runs_from(d, 2)
+        assert sorted(os.listdir(d)) == [
+            "run00000.codes.npy", "run00000.counts.npy",
+            "run00001.codes.npy", "run00001.counts.npy", "stream.token"]
+        mod.remove_runs(d)
+        assert os.listdir(d) == ["stream.token"]
+        assert mod.read_token(str(tmp_path / "nowhere")) is None
+    del rng
+
+
+@pytest.mark.parametrize("args, env", [
+    ((None, None, None), {}),
+    ((None, 4, 3), {}),
+    ((None, None, None), {"FINDKMER_NUM_PROCESSES": "3",
+                          "FINDKMER_PROCESS_ID": "1"}),
+    ((None, 2, None), {"FINDKMER_PROCESS_ID": "1"}),
+    ((None, 1, 5), {}),
+    ((None, 2, 2), {}),
+    ((None, 2, -1), {}),
+])
+def test_multihost_without_a_coordinator_equal(monkeypatch, args, env):
+    for name in ("FINDKMER_COORDINATOR", "FINDKMER_NUM_PROCESSES",
+                 "FINDKMER_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    try:
+        want = jax_multihost.initialize(*args)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            multihost.initialize(*args)
+        assert str(got.value) == str(e)
+        return
+    assert multihost.initialize(*args) == want
+    for p in range(1, 4):
+        for h in range(p):
+            assert list(multihost.shard_batches_round_robin(
+                iter(range(11)), p, h)) == list(
+                jax_multihost.shard_batches_round_robin(
+                    iter(range(11)), p, h))
 
 
 # ---- encode, native ---------------------------------------------------------
@@ -492,6 +634,32 @@ def test_cli_parsers_give_equal_configs(fixtures_dir, argv):
     want = jax_cli._cfg_from_args(theirs)
     assert isinstance(got, config.Config)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+STREAM_ARGVS = [
+    ["-k", "8"],
+    ["-k", "21", "--canonical", "--checkpoint", "ck", "--checkpoint-every",
+     "2", "--spill", "runs"],
+    ["-k", "12", "--min-count", "2", "--max-count", "7", "--num-processes",
+     "2", "--process-id", "1"],
+    ["-k", "17", "--coordinator", "host:1", "--stats", "json", "--log",
+     "INFO"],
+]
+
+
+@pytest.mark.parametrize("argv", STREAM_ARGVS,
+                         ids=[" ".join(a) for a in STREAM_ARGVS])
+def test_stream_parsers_give_equal_configs(fixtures_dir, argv):
+    """`stream` takes the reference's flags (and --device)."""
+    inputs = [os.path.join(fixtures_dir, n) for n in ("multi.fa", "tiny.fa")]
+    argv = ["stream", "-i", *inputs] + argv
+    ours = cli.build_parser().parse_args(argv)
+    theirs = jax_cli.build_parser().parse_args(argv)
+    shared = {k: v for k, v in vars(ours).items()
+              if k not in ("fn", "device")}
+    assert shared == {k: v for k, v in vars(theirs).items() if k != "fn"}
+    assert dataclasses.asdict(cli._cfg_from_args(ours)) == \
+        dataclasses.asdict(jax_cli._cfg_from_args(theirs))
 
 
 @pytest.mark.parametrize("argv,exc", [

@@ -85,12 +85,17 @@ def test_sparse_zeros_error_matches_jax(fixtures_dir, tmp_path, capsys):
 
 def test_legacy_finalize_is_refused(fixtures_dir, tmp_path, capsys,
                                     monkeypatch):
+    """The name is from when the port refused it.  The heap-merge finalize
+    is ported: FINDKMER_ORDERED_FINALIZE=0 is refused no more, and writes
+    the bytes of the ordered finalize and of the JAX CLI under the same
+    setting."""
+    path = os.path.join(fixtures_dir, "ecoli_frag.fa")
+    args = ["count", "-i", path, "-k", "21"]
+    ordered = tmp_path / "ordered.tsv"
+    assert torch_cli.main(args + ["-o", str(ordered), "--device", "cpu"]) == 0
     monkeypatch.setenv("FINDKMER_ORDERED_FINALIZE", "0")
-    path = os.path.join(fixtures_dir, "tiny.fa")
-    out = tmp_path / "o.tsv"
-    rc = torch_cli.main(["count", "-i", path, "-k", "21", "-o", str(out),
-                         "--device", "cpu"])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and len(err.strip().splitlines()) == 1
-    assert not out.exists()
+    out, jout = tmp_path / "o.tsv", tmp_path / "j.tsv"
+    assert torch_cli.main(args + ["-o", str(out), "--device", "cpu"]) == 0
+    assert capsys.readouterr().err == ""
+    assert jax_cli.main(args + ["-o", str(jout)]) == 0
+    assert out.read_bytes() == ordered.read_bytes() == jout.read_bytes() != b""
