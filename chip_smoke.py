@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--only rowsort|window|stream]
+    python3 chip_smoke.py [--seed N] [--profile]
+                          [--only rowsort|window|stream|filter]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
 sm_90a) and nvcc.  Each phase prints one line; any failure raises, so the
@@ -112,6 +113,22 @@ exit code is non-zero and the final ok-line is not printed.
      resumed: same bytes.  Heap-merge finalize:
      FINDKMER_ORDERED_FINALIZE=0 `count -k 21 --canonical`: same bytes,
      its finalize seconds beside the ordered finalize's
+ 12. read filtering (`filter`, a contaminant screen): a seeded reference
+     of 8 Mbase, its spectra counted on the card (k=21 --canonical, k=15,
+     k=31), 1,000,000 FASTQ reads of 150 bases (half drawn from the
+     reference with 1% substitutions, half from an unrelated seeded
+     genome, 0.2% N), the first 200,000 of them as FASTA, 250,000 R1/R2
+     pairs of a 400-base insert, and a 50,000-read subset.  Each run by `--engine
+     host` and by `--engine device --device cuda`, whose output sha256 and
+     kept/seen must equal the host engine's: --canonical (the offsets
+     flow, and FINDKMER_FILTER_FAST=0 the list flow), the FASTA reads,
+     --paired --pair-mode both --invert, --min-frac 0.5, the subset at
+     k=15 and k=31; each device run's batch steps must have run on cuda,
+     and none of K1-K3 may launch.  Reads/s and bases/s of every run; then
+     the device step alone on one staged batch of 256 x 65536 windows:
+     median CUDA-event ms of the step and of its extraction, membership
+     and bitmap, each beside the bytes bound of its own inputs and
+     outputs, and the member table's bytes
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -124,12 +141,14 @@ what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
 the instructions of its production kernels by opcode); with --only window
 phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
 the quick check of an edit to those kernels; with --only stream phases
-1, 2 and 11 (which then makes its own `count` runs to compare with).  Each
-of the three prints no summary and no ok-line.
+1, 2 and 11 (which then makes its own `count` runs to compare with); with
+--only filter phases 1, 2 and 12.  Each of the four prints no summary and
+no ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
-launches on the main paths: the `count` runs, and each run that phase
-11 makes in this process (`launches_by_path`), each counted from 0; its
+launches on the main paths: the `count` runs, each run that phase 11
+makes in this process, and the filter runs of phase 12, which launch none
+(`launches_by_path`), each counted from 0; its
 ms beside the plain version's, the one
 library call's where there is one, and its bound); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -158,7 +177,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from findkmer_torch import Config, cli, pipeline
+from findkmer_torch import Config, cli, filter_device, pipeline
 from findkmer_torch.models import counter as counter_mod
 from findkmer_torch.models.counter import KmerCounter
 from findkmer_torch.ops import histogram as hist_ops
@@ -1628,17 +1647,288 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
     return fused_window_histogram_cuda.launches
 
 
+FILTER_REF_BASES = 8 << 20     # a pair of bacterial genomes
+FILTER_READS = 1_000_000       # 150 bp FASTQ reads: 150 Mbase
+FILTER_PAIRS = 250_000
+FILTER_SUBSET = 50_000         # the k = 15 and k = 31 runs
+# the FASTA runs: the list flow parses and emits in Python per read, so
+# 1 M reads would add ~40 s to the smoke and nothing to the check
+FASTA_READS = 200_000
+READ_LEN = 150
+FRAGMENT = 400                 # a pair's insert: R2 is its far end, revcomp
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+_CODE_OF = np.zeros(256, np.uint8)  # A, C, G, T -> 0..3 (others 0)
+_CODE_OF[_ACGT] = np.arange(4, dtype=np.uint8)
+
+
+def _draw(genome: np.ndarray, n: int, length: int,
+          rng: np.random.Generator) -> np.ndarray:
+    pos = rng.integers(0, genome.size - length, n)
+    return genome[pos[:, None] + np.arange(length)]
+
+
+def _filter_sequences(ref: np.ndarray, n: int, length: int,
+                      rng: np.random.Generator) -> np.ndarray:
+    """(n, length) uint8 fragments: half from `ref` with 1% substitutions,
+    half from an unrelated seeded genome, shuffled; 0.2% N bases."""
+    half = n // 2
+    own = _draw(ref, half, length, rng)
+    sub = rng.random(own.shape) < 0.01
+    own[sub] = _ACGT[rng.integers(0, 4, int(sub.sum()))]
+    other = _ACGT[rng.integers(0, 4, ref.size, dtype=np.uint8)]
+    seqs = np.concatenate([own, _draw(other, n - half, length, rng)])
+    seqs[rng.random(seqs.shape) < 0.002] = ord("N")
+    return seqs[rng.permutation(n)]
+
+
+def _records(seqs: np.ndarray, lead: bytes, tag: bytes, qual) -> np.ndarray:
+    """Fixed-width FASTQ (qual given) or FASTA records, one row each:
+    lead + 7-digit index + tag, then the sequence."""
+    n = seqs.shape[0]
+    idx = np.arange(n)
+    digits = np.stack([(idx // 10 ** d) % 10 + 48 for d in range(6, -1, -1)],
+                      axis=1).astype(np.uint8)
+
+    def const(b: bytes):
+        return np.broadcast_to(np.frombuffer(b, np.uint8), (n, len(b)))
+
+    parts = [const(lead), digits, const(tag + b"\n"), seqs]
+    if qual is not None:
+        parts += [const(b"\n+\n"), qual]
+    parts.append(const(b"\n"))
+    return np.ascontiguousarray(np.concatenate(parts, axis=1))
+
+
+def write_filter_inputs(tmp: str, seed: int) -> tuple:
+    """The filter phase's seeded inputs: a reference genome (FASTA), reads
+    as FASTQ, the first of them as FASTA, R1/R2 pairs, and a subset of the
+    reads.
+    -> (their paths, the first reads' sequences: one device batch)."""
+    rng = np.random.default_rng(seed)
+    paths = {name: os.path.join(tmp, name) for name in (
+        "ref.fa", "reads.fq", "reads.fa", "r1.fq", "r2.fq", "subset.fq")}
+    write_genome(paths["ref.fa"], seed, total=FILTER_REF_BASES)
+    with open(paths["ref.fa"], "rb") as f:
+        ref = np.frombuffer(b"".join(
+            ln for ln in f.read().split(b"\n") if not ln.startswith(b">")),
+            np.uint8)
+    reads = _filter_sequences(ref, FILTER_READS, READ_LEN, rng)
+    qual = rng.integers(35, 74, reads.shape, dtype=np.uint8)
+    fq = _records(reads, b"@r", b" seeded", qual)
+    with open(paths["reads.fq"], "wb") as f:
+        f.write(fq)
+    with open(paths["subset.fq"], "wb") as f:
+        f.write(fq[:FILTER_SUBSET])
+    del fq
+    with open(paths["reads.fa"], "wb") as f:
+        f.write(_records(reads[:FASTA_READS], b">r", b" seeded", None))
+    frags = _filter_sequences(ref, FILTER_PAIRS, FRAGMENT, rng)
+    r2 = frags[:, ::-1][:, :READ_LEN]
+    r2 = np.where(r2 == ord("N"), r2, _ACGT[3 - _CODE_OF[r2]])  # revcomp
+    qual = qual[:FILTER_PAIRS]
+    for name, seqs, tag in (("r1.fq", frags[:, :READ_LEN], b"/1"),
+                            ("r2.fq", r2, b"/2")):
+        with open(paths[name], "wb") as f:
+            f.write(_records(np.ascontiguousarray(seqs), b"@p", tag, qual))
+    return paths, reads[: (256 << 16) // (READ_LEN + 1) + 1].copy()
+
+
+class _StepTap:
+    """Counts the device filter's batch steps (`filter_device._filter_step`)
+    and the devices they ran on."""
+
+    def __enter__(self):
+        self.devices = collections.Counter()
+        self._orig = filter_device._filter_step
+
+        def tapped(members, packed, *args):
+            self.devices[packed.device.type] += 1
+            return self._orig(members, packed, *args)
+
+        filter_device._filter_step = tapped
+        return self
+
+    def __exit__(self, *exc):
+        filter_device._filter_step = self._orig
+
+
+def _run_filter(args, env: dict, outs) -> dict:
+    """`findkmer_torch.cli filter <args>` in this process -> wall, the
+    kept/seen of its stderr line, the sha256 and bytes of each output
+    (then deleted)."""
+    err = io.StringIO()
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["filter", *args])
+        wall = time.perf_counter() - t0
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = val
+    m = re.search(r"kept (\d+)/(\d+)", err.getvalue())
+    if rc != 0 or m is None:
+        raise AssertionError(f"filter {args} exited {rc}: {err.getvalue()}")
+    hashed = [_sha256_and_delete(o) for o in outs]
+    return {"wall_s": wall, "kept": int(m.group(1)), "seen": int(m.group(2)),
+            "sha256": [h for h, _ in hashed],
+            "out_bytes": [b for _, b in hashed]}
+
+
+def phase_filter_step(spec_path: str, seqs: np.ndarray) -> dict:
+    """The device step alone on one staged batch of 256 x 65536 windows
+    (16.7 Mbase of the reads), k = 21 --canonical against the reference's
+    spectrum: median CUDA-event ms of the whole step and of its three
+    parts, each beside the bytes bound of its own inputs and outputs; and
+    the host seconds of `FilterSpec.load` of that spectrum."""
+    from findkmer_torch.filter import FilterSpec
+    from findkmer_torch.io import native
+
+    t0 = time.perf_counter()
+    spec = FilterSpec.load(spec_path, canonical=True)
+    load_s = time.perf_counter() - t0  # every run of both engines pays it
+    dev = filter_device.DeviceFilter(spec, device="cuda")
+    k, B, L, R = dev.k, dev.B, dev.L, dev.R
+    joined = np.full((seqs.shape[0], READ_LEN + 1), ord("N"), np.uint8)
+    joined[:, :READ_LEN] = seqs
+    work = np.full(k - 1 + dev.need, 4, np.uint8)
+    native.filter_prepare(np.ascontiguousarray(joined.reshape(-1)
+                                               [: dev.need]), work[k - 1 :])
+    packed, validbits = (torch.from_numpy(a).cuda()
+                         for a in native.pack_rows(work, B, L, R))
+    members = dev.members
+    codes = window_ops.window_codes_packed(packed, validbits, k, True, R=R)
+    hit = filter_device.member_hits(members, codes)
+    parts = {
+        "step": (lambda: filter_device._filter_step(
+            members, packed, validbits, k, True, R, L)),
+        "extraction": (lambda: window_ops.window_codes_packed(
+            packed, validbits, k, True, R=R)),
+        "membership": lambda: filter_device.member_hits(members, codes),
+        "bitmap": lambda: filter_device.hit_bitmap(hit, B, L),
+    }
+    wire = packed.nbytes + validbits.nbytes
+    bitmap = dev.need // 8
+    moved = {"step": wire + dev.member_bytes + bitmap,
+             "extraction": wire + codes.nbytes,
+             "membership": codes.nbytes + dev.member_bytes + hit.nbytes,
+             "bitmap": hit.nbytes + bitmap}
+    out = {}
+    for name, fn in parts.items():
+        ms = _median_ms(fn)
+        bound = 1e3 * moved[name] / PEAK_BYTES_PER_S
+        out[name] = {"ms": ms, "bytes": moved[name], "bound_ms": bound,
+                     "share_of_bound": bound / ms}
+    valid = float((codes != window_ops.sentinel(codes.dtype)).float().mean())
+    say("filter_device_step", k=k, canonical=True, batch=[B, L],
+        bases=dev.need, member_codes=int(members.numel()),
+        member_bytes=dev.member_bytes, spectrum_load_s=load_s,
+        valid_share=valid,
+        hit_share=float(hit.float().mean()), device=str(members.device),
+        bases_per_s=dev.need / out["step"]["ms"] * 1e3, **out)
+    del codes, hit, packed, validbits, dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_filter(tmp: str, seed: int) -> dict:
+    """Read filtering (phase 12 of the module docstring) -> {kernel: its
+    launches in the filter runs} (none of K1-K3 runs there)."""
+    t0 = time.perf_counter()
+    p, staged = write_filter_inputs(tmp, seed + 21)
+    spec = {}
+    for k, extra in ((21, ["--canonical"]), (15, []), (31, [])):
+        spec[k] = os.path.join(tmp, f"spec{k}.tsv")
+        run_cli(["count", "-i", p["ref.fa"], "-k", str(k), "-o", spec[k],
+                 "--device", "cuda"] + extra)
+    say("filter_inputs", seconds=time.perf_counter() - t0,
+        reads=FILTER_READS, pairs=FILTER_PAIRS, read_len=READ_LEN,
+        ref_bases=FILTER_REF_BASES,
+        bytes={name: os.path.getsize(path) for name, path in p.items()},
+        spectrum_bytes={k: os.path.getsize(v) for k, v in spec.items()})
+    wrappers = {"histogram_cuda": histogram_cuda,
+                "fused_window_histogram_cuda": fused_window_histogram_cuda,
+                "sort_rows_cuda": sort_rows_cuda}
+    for fn in wrappers.values():
+        fn.launches = 0
+    out1 = os.path.join(tmp, "kept.fq")
+    pair_outs = [os.path.join(tmp, f"kept{i}.fq") for i in (1, 2)]
+    k21 = ["--spectrum", spec[21], "--canonical"]
+    # (name, args, outputs, bases, the device runs' environments)
+    runs = [
+        ("fastq_canonical", ["-i", p["reads.fq"], "-o", out1] + k21, [out1],
+         FILTER_READS, [{}, {"FINDKMER_FILTER_FAST": "0"}]),
+        ("fasta_canonical", ["-i", p["reads.fa"], "-o", out1] + k21, [out1],
+         FASTA_READS, [{}]),
+        ("paired_both_invert",
+         ["-i", p["r1.fq"], p["r2.fq"], "--paired", "--pair-mode", "both",
+          "--invert", "-o", ",".join(pair_outs)] + k21, pair_outs,
+         2 * FILTER_PAIRS, [{}]),
+        ("min_frac", ["-i", p["reads.fq"], "-o", out1, "--min-frac", "0.5"]
+         + k21, [out1], FILTER_READS, [{}]),
+        ("subset_k15", ["-i", p["subset.fq"], "-o", out1, "--spectrum",
+                        spec[15]], [out1], FILTER_SUBSET, [{}]),
+        ("subset_k31", ["-i", p["subset.fq"], "-o", out1, "--spectrum",
+                        spec[31]], [out1], FILTER_SUBSET, [{}]),
+    ]
+    results = []
+    with _StepTap() as steps:
+        for name, args, outs, n_reads, device_envs in runs:
+            host = _run_filter(args + ["--engine", "host"], {}, outs)
+            for env in device_envs:
+                steps.devices.clear()
+                got = _run_filter(args + ["--engine", "device", "--device",
+                                          "cuda"], env, outs)
+                for key in ("kept", "seen", "sha256"):
+                    if got[key] != host[key]:
+                        raise AssertionError(
+                            f"filter {name} {env}: device {key} {got[key]} "
+                            f"differs from the host engine's {host[key]}")
+                if set(steps.devices) != {"cuda"}:
+                    raise AssertionError(
+                        f"filter {name}: device steps ran on {steps.devices}")
+                run = {"run": name, "env": env, "seen": got["seen"],
+                       "kept": got["kept"], "sha256": got["sha256"],
+                       "out_bytes": got["out_bytes"],
+                       "device_steps": steps.devices["cuda"]}
+                for engine, r in (("host", host), ("device", got)):
+                    run[f"{engine}_wall_s"] = r["wall_s"]
+                    run[f"{engine}_reads_per_s"] = n_reads / r["wall_s"]
+                    run[f"{engine}_bases_per_s"] = (n_reads * READ_LEN
+                                                    / r["wall_s"])
+                say("filter_run", **run, identical_to_host=True)
+                results.append(run)
+    launched = {name: fn.launches for name, fn in wrappers.items()}
+    if any(launched.values()):
+        raise AssertionError(f"the filter path launched {launched}")
+    step = phase_filter_step(spec[21], staged)
+    for path in list(p.values()) + list(spec.values()):
+        os.unlink(path)
+    say("filter_launches", **launched,
+        note="the filter path is plain torch (extraction, searchsorted, "
+             "bitmap): none of K1-K3 runs there",
+        runs=len(results), step_ms=step["step"]["ms"],
+        seconds=time.perf_counter() - t0)
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
-    ap.add_argument("--only", choices=["rowsort", "window", "stream"],
+    ap.add_argument("--only", choices=["rowsort", "window", "stream",
+                                       "filter"],
                     help="run only the row sort's phases (K3), only the "
-                         "histogram kernels' (K1 and K2), or only the "
-                         "restartable stream's, and stop: no summary, no "
-                         "ok-line; the quick check of an edit")
+                         "histogram kernels' (K1 and K2), only the "
+                         "restartable stream's, or only read filtering's, "
+                         "and stop: no summary, no ok-line; the quick "
+                         "check of an edit")
     args = ap.parse_args()
 
     smi = phase_environment()
@@ -1652,6 +1942,10 @@ def main() -> int:
     if args.only == "stream":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_stream(tmp, phase_genome(tmp, args.seed), {})
+        return 0
+    if args.only == "filter":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_filter(tmp, args.seed)
         return 0
     if args.only == "window":
         phase_ptxas("histogram.cu")
@@ -1681,6 +1975,7 @@ def main() -> int:
             "sparse_phases": counted["phases"]})
         os.unlink(fasta)
         phase_entry_points(tmp, args.seed)
+        filter_launches = phase_filter(tmp, args.seed)
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
@@ -1692,8 +1987,9 @@ def main() -> int:
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
     def launches_of(name: str, count: int) -> dict:
-        """The `count` paths' launches and each stream-phase run's own."""
-        by_run = stream_launches[name]
+        """The `count` paths' launches, each stream-phase run's own and
+        the filter runs' (none)."""
+        by_run = {**stream_launches[name], "filter": filter_launches[name]}
         return {"launches": count + sum(by_run.values()),
                 "launches_by_path": {"count": count, **by_run}}
 

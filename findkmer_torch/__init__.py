@@ -12,11 +12,14 @@ What runs today on one device, for any k up to 31 (a dense 4^k table for
 k <= 10, k <= 15 with `--table-mode direct`; the sparse sorted-run store
 above): `count` (one combined spectrum, `--per-input`, `--per-record`),
 `stream` (the restartable count: `--checkpoint`, exact resume), the disk
-spill of both (`--spill`), `selftest`, and the library API `count` /
-`count_per_record` / `count_text` / `stream_count` (`api.py`):
+spill of both (`--spill`), `filter` (read filtering by spectrum
+membership, single-end and paired, by the host C scan or on the device),
+`selftest`, and the library API `count` / `count_per_record` /
+`count_text` / `filter_reads` / `stream_count` (`api.py`):
 
     python -m findkmer_torch.cli count -i in.fa -k 21 --canonical -o out.tsv
     python -m findkmer_torch.cli stream -i in.fa -k 21 -o out.tsv --checkpoint ck
+    python -m findkmer_torch.cli filter -i reads.fq --spectrum spec.tsv -o kept.fq
     python -m findkmer_torch.cli selftest --device cuda
 
 Its device kernels are hand-written CUDA for Hopper, built with nvcc at
@@ -34,8 +37,8 @@ from findkmer_torch.config import Config
 
 def __getattr__(name):
     # lazy: the API imports torch
-    if name in ("count", "count_per_record", "count_text", "stream_count",
-                "Spectrum"):
+    if name in ("count", "count_per_record", "count_text", "filter_reads",
+                "stream_count", "Spectrum"):
         from findkmer_torch import api
 
         return getattr(api, name)
@@ -43,4 +46,4 @@ def __getattr__(name):
 
 
 __all__ = ["Config", "count", "count_per_record", "count_text",
-           "stream_count", "Spectrum"]
+           "filter_reads", "stream_count", "Spectrum"]

@@ -1,5 +1,6 @@
 """Public Python API of the port: `count`, `count_per_record`, `count_text`,
-and `stream_count` (the restartable count of `streaming.py`, re-exported).
+`filter_reads` (read filtering, `filter.py`) and `stream_count` (the
+restartable count of `streaming.py`, re-exported).
 
 Counterpart of the same functions of `findkmer_tpu/api.py`, with the
 torch device named explicitly (`device="cuda"` or `"cpu"`, or a
@@ -14,6 +15,7 @@ torch device named explicitly (`device="cuda"` or `"cpu"`, or a
 
     fkt.stream_count(["genome.fa"], fkt.Config(k=21), device="cuda",
                      checkpoint_dir="ck", checkpoint_every=64)
+    fkt.filter_reads("reads.fq", "spec.tsv", "kept.fq", engine="device")
 
 `Spectrum` is the port's own copy of the JAX package's class, with the
 same methods; its lookups use the port's window helpers.
@@ -202,6 +204,57 @@ def count_text(text: str, k: int, *,
     ):
         state = counter.step(state, counter.put_batch(rows))
     return Spectrum.from_engine(counter.finalize(state), cfg)
+
+
+def filter_reads(
+    inputs: Union[str, Sequence[str]],
+    spectrum: str,
+    output: Union[str, Sequence[str]],
+    *,
+    paired: bool = False,
+    min_hits: int = 1,
+    min_frac: Optional[float] = None,
+    invert: bool = False,
+    canonical: bool = False,
+    min_count: int = 0,
+    max_count: int = 0,
+    engine: str = "auto",
+    pair_mode: str = "any",
+    fmt: str = "auto",
+    sep: str = "\t",
+    device: Union[str, torch.device] = "cuda",
+):
+    """Filter reads by spectrum membership.  CLI: `findkmer-torch filter`.
+
+    Single-end: inputs = path or list of paths, output = one path.
+    Paired (paired=True): inputs = (R1, R2), output = (OUT1, OUT2);
+    pairs are kept/dropped together (pair_mode "any" or "both").
+    engine: "host" (OpenMP C scan) / "device" (membership on `device`,
+    where cuda without a card raises) / "auto" (the C scan when built).
+    Returns (reads_or_pairs_kept, seen)."""
+    from findkmer_torch.cli import filter_into  # gz by extension, as the CLI
+    from findkmer_torch.filter import FilterSpec, _resolve_engine
+
+    engine = _resolve_engine(engine, device)
+    dev = _device(device) if engine == "device" else None
+    spec = FilterSpec.load(
+        spectrum, sep=sep, canonical=canonical,
+        min_count=min_count, max_count=max_count,
+    )
+    opts = dict(fmt=fmt, min_hits=min_hits, min_frac=min_frac,
+                invert=invert, engine=engine, device=dev,
+                pair_mode=pair_mode)
+    if paired:
+        ins, outs = list(inputs), list(output)
+        if len(ins) != 2 or len(outs) != 2:
+            raise ValueError(
+                "paired filtering takes inputs=(R1, R2) and "
+                "output=(OUT1, OUT2)"
+            )
+        return filter_into(ins, outs, spec, paired=True, **opts)
+    if isinstance(inputs, (str, bytes)):
+        inputs = [inputs]
+    return filter_into(inputs, [output], spec, **opts)
 
 
 def stream_count(paths, cfg: Config, **kw):

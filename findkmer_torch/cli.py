@@ -1,5 +1,5 @@
-"""findkmer-torch CLI: the `count`, `stream` and `selftest` subcommands of
-the port.
+"""findkmer-torch CLI: the `count`, `stream`, `filter` and `selftest`
+subcommands of the port.
 
     python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv [--device cuda]
     python -m findkmer_torch.cli count -i a.fa b.fa -k 8 --per-input -o DIR
@@ -7,18 +7,24 @@ the port.
     python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv --spill DIR
     python -m findkmer_torch.cli stream -i in.fa -k 21 -o out.tsv \
         --checkpoint DIR [--checkpoint-every N] [--spill DIR]
+    python -m findkmer_torch.cli filter -i reads.fq --spectrum spec.tsv \
+        -o kept.fq [--engine auto|host|device] [--device cuda]
+    python -m findkmer_torch.cli filter -i R1.fq R2.fq --paired \
+        --spectrum spec.tsv -o kept1.fq,kept2.fq
     python -m findkmer_torch.cli selftest [--device cuda] [--seed N]
 
 Same arguments (flags, defaults, help texts, exit codes) and the same
-output bytes as `findkmer count` and `findkmer stream` of the JAX package
-(whose checkpoints and spill runs the port reads, and the other way
-round): `_add_common`,
+output bytes as `findkmer count`, `findkmer stream` and `findkmer filter`
+of the JAX package (whose checkpoints and spill runs the port reads, and
+the other way round): `_add_common`,
 `_cfg_from_args` with its sparse autosize, `_open_out` and the
 --per-input file names `_per_input_name` are the port's own copies of
 that CLI's helpers, and the spectrum is written by `findkmer_torch.output`
 (`write_spectrum` and, for sparse tables, `write_spectrum_streaming` over
 the counter's chunked finalize).  Any k up to 31 counts.  `--device` picks the torch device; asking for cuda without
-one is an error, never a CPU run.
+one is an error, never a CPU run.  One exit code differs: `filter` refuses
+SAM/BAM input with exit 2 (trouble), where the JAX CLI exits 1 (its
+"nothing kept").
 
 Not yet ported, each refused with one error line and exit 2: `--devices`
 other than 1, `--profile`, and `stream --coordinator` with more than one
@@ -424,6 +430,73 @@ def cmd_stream(args, row_sort: str = "auto",
                                 dense_kernel=dense_kernel)
 
 
+def cmd_filter(args, **_kernels) -> int:
+    """Keep/drop reads by spectrum membership (kmc_tools filter class).
+    The device engine scores on --device; a CUDA device that is not there
+    is an error before any output is opened."""
+    from findkmer_torch.device import resolve_device
+    from findkmer_torch.filter import FilterSpec, _resolve_engine
+
+    for path in args.input:  # before the output is created/truncated
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"input file not found: {path}")
+    engine = _resolve_engine(args.engine, args.device)
+    device = resolve_device(args.device) if engine == "device" else None
+    spec = FilterSpec.load(
+        args.spectrum, sep=args.sep, canonical=args.canonical,
+        min_count=args.min_count, max_count=args.max_count,
+    )
+    opts = dict(fmt=args.format, min_hits=args.min_hits,
+                min_frac=args.min_frac, invert=args.invert, engine=engine,
+                device=device, pair_mode=args.pair_mode)
+    if args.paired:
+        if len(args.input) != 2:
+            raise ValueError(
+                "--paired takes exactly two inputs (R1 R2), got "
+                f"{len(args.input)}"
+            )
+        outs = (args.output or "").split(",")
+        if len(outs) != 2 or not all(outs) or "-" in outs:
+            raise ValueError(
+                "--paired writes two files: -o OUT_R1,OUT_R2"
+            )
+        kept, seen = filter_into(args.input, outs, spec, paired=True, **opts)
+        print(f"kept {kept}/{seen} read pairs (k={spec.k})",
+              file=sys.stderr)
+    else:
+        kept, seen = filter_into(args.input, [args.output], spec, **opts)
+        print(f"kept {kept}/{seen} reads (k={spec.k})", file=sys.stderr)
+    return 0 if kept else 1  # grep convention: 1 = nothing kept
+
+
+def filter_into(inputs, outputs, spec, *, paired: bool = False,
+                pair_mode: str = "any", **opts):
+    """Open `outputs` with `_open_out` (gzip when a path ends in .gz) and
+    filter `inputs` into them: single-end, every input in turn into the
+    one output; paired, (R1, R2) into (OUT1, OUT2).  -> (kept, seen) reads
+    or pairs.  The shared tail of `cmd_filter` and `api.filter_reads`."""
+    from findkmer_torch.filter import filter_file, filter_file_paired
+
+    opened = []
+    try:
+        for out in outputs:
+            opened.append(_open_out(out))
+        if paired:
+            (f1, _), (f2, _) = opened
+            return filter_file_paired(inputs[0], inputs[1], f1, f2, spec,
+                                      pair_mode=pair_mode, **opts)
+        kept = seen = 0
+        for path in inputs:
+            k1, s1 = filter_file(path, opened[0][0], spec, **opts)
+            kept += k1
+            seen += s1
+        return kept, seen
+    finally:
+        for f, close in opened:
+            if close:
+                f.close()
+
+
 def _add_thresholds(p: argparse.ArgumentParser) -> None:
     p.add_argument("--min-count", type=int, default=0, metavar="N",
                    help="suppress output of k-mers with count < N "
@@ -476,6 +549,55 @@ def build_parser() -> argparse.ArgumentParser:
                          "spectrum")
     _add_device(ps, "count on")
     ps.set_defaults(fn=cmd_stream)
+
+    pf = sub.add_parser(
+        "filter",
+        help="keep/drop reads by spectrum membership (kmc_tools filter)",
+        epilog="exit status: 0 = some reads kept, 1 = none kept "
+               "(grep convention), 2 = trouble",
+    )
+    pf.add_argument("-i", "--input", required=True, nargs="+",
+                    help="FASTA/FASTQ file(s), optionally gzipped")
+    pf.add_argument("--spectrum", required=True,
+                    help="spectrum TSV the reads are matched against "
+                         "(k is inferred from it)")
+    pf.add_argument("-o", "--output", default="-",
+                    help="passing records, input record format "
+                         "preserved (gzip-compressed when the path "
+                         "ends in .gz)")
+    pf.add_argument("--format", choices=["auto", "fasta", "fastq"],
+                    default="auto")
+    pf.add_argument("--min-hits", type=int, default=1, metavar="N",
+                    help="keep reads with >= N k-mer hits (default 1)")
+    pf.add_argument("--min-frac", type=float, default=None, metavar="F",
+                    help="additionally require hits/valid-windows >= F")
+    pf.add_argument("--min-count", type=int, default=0,
+                    help="only spectrum entries with count >= N count "
+                         "as hits")
+    pf.add_argument("--max-count", type=int, default=0,
+                    help="only spectrum entries with count <= N (0=off)")
+    pf.add_argument("--canonical", action="store_true",
+                    help="canonical matching: fold both spectrum and "
+                         "read k-mers to revcomp-min form")
+    pf.add_argument("--invert", action="store_true",
+                    help="keep the complement (reads that do NOT pass)")
+    pf.add_argument("--engine", choices=["auto", "host", "device"],
+                    default="auto",
+                    help="membership scorer: host = OpenMP C scan, "
+                         "device = CUDA membership probe (auto picks "
+                         "the C scan when built, else device on a "
+                         "CUDA card)")
+    pf.add_argument("--paired", action="store_true",
+                    help="paired-end mode: -i R1 R2, pairs kept/dropped "
+                         "together, -o OUT_R1,OUT_R2 (outputs stay "
+                         "index-synchronized)")
+    pf.add_argument("--pair-mode", choices=["any", "both"],
+                    default="any",
+                    help="pair passes when ANY mate passes (default) "
+                         "or only when BOTH do")
+    pf.add_argument("--sep", default="\t")
+    _add_device(pf, "score on")
+    pf.set_defaults(fn=cmd_filter)
 
     pst = sub.add_parser(
         "selftest",

@@ -183,8 +183,10 @@ class FastaReader:
                     # empty spectrum).  For CRLF the CR wins; the LF it
                     # leaves behind is whitespace in the sequence region.
                     nl = buf.find(b"\n", pos)
-                    cr = buf.find(b"\r", pos)
-                    if cr >= 0 and (nl < 0 or cr < nl):
+                    # the CR search stops at the LF: searched to the end of
+                    # the block, it made a block of short records quadratic
+                    cr = buf.find(b"\r", pos, nl if nl >= 0 else n)
+                    if cr >= 0:
                         nl = cr
                     if nl < 0:
                         if not eof:

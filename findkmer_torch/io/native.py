@@ -115,6 +115,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, size, ctypes.c_uint32, ctypes.c_uint8, ptr,
     ]
     lib.fk_format_spectrum.restype = size
+    lib.fk_parse_spectrum.argtypes = [
+        ptr, size, ctypes.c_int, ctypes.c_uint8, ptr, ptr, size,
+    ]
+    lib.fk_parse_spectrum.restype = size
+    lib.fk_filter_hits.argtypes = [
+        ptr, ptr, ptr, i64, ctypes.c_int, ctypes.c_int, ptr, size, ptr,
+        ctypes.c_int, ptr, ptr,
+    ]
+    lib.fk_filter_hits.restype = None
+    lib.fk_filter_prepare.argtypes = [ptr, i64, ptr]
+    lib.fk_filter_prepare.restype = None
+    lib.fk_filter_bitmap_hits.argtypes = [
+        ptr, ptr, ptr, i64, ctypes.c_int, ptr, i64, ptr, ptr,
+    ]
+    lib.fk_filter_bitmap_hits.restype = None
+    lib.fk_filter_bitmap_hits2.argtypes = [
+        ptr, ptr, ptr, ptr, i64, ctypes.c_int, ptr, i64, ptr, ptr,
+    ]
+    lib.fk_filter_bitmap_hits2.restype = None
     lib.fk_fastq_scan.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, i64, ptr, ptr]
     lib.fk_fastq_scan.restype = i64
     lib.fk_filter_gather_prepare.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
@@ -143,9 +162,14 @@ def _ptr(a: np.ndarray) -> ctypes.c_void_p:
 
 
 def _check_u8(**arrays) -> None:
+    _check(np.uint8, **arrays)
+
+
+def _check(dtype, **arrays) -> None:
     for name, a in arrays.items():
-        if a.dtype != np.uint8 or not a.flags["C_CONTIGUOUS"]:
-            raise ValueError(f"{name} must be a contiguous uint8 array")
+        if a.dtype != dtype or not a.flags["C_CONTIGUOUS"]:
+            raise ValueError(
+                f"{name} must be a contiguous {np.dtype(dtype).name} array")
 
 
 def encode(buf: np.ndarray) -> np.ndarray:
@@ -296,6 +320,97 @@ def filter_gather_prepare(buf: np.ndarray, starts: np.ndarray,
     lib.fk_filter_gather_prepare(
         _ptr(buf), _ptr(starts), _ptr(joined), _ptr(lens), int(starts.size),
         _ptr(out))
+
+
+def _hits_out(n: int):
+    return np.empty(n, np.int64), np.empty(n, np.int64)
+
+
+def filter_hits(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                k: int, canonical: bool, table: np.ndarray,
+                bloom: np.ndarray, bloom_shift: int):
+    """Per-read (hits, valid windows) vs a sorted u64 code table.
+
+    buf holds all reads' bytes; read r spans buf[starts[r]:+lens[r]].
+    bloom is the bool one-probe prefilter (see filter.FilterSpec)."""
+    lib = _require()
+    _check_u8(buf=buf)
+    _check(np.int64, starts=starts, lens=lens)
+    _check(np.uint64, table=table)
+    _check(np.bool_, bloom=bloom)
+    n = int(starts.size)
+    hits, wins = _hits_out(n)
+    lib.fk_filter_hits(
+        _ptr(buf), _ptr(starts), _ptr(lens), n, k, int(canonical),
+        _ptr(table), table.size, _ptr(bloom), bloom_shift, _ptr(hits),
+        _ptr(wins))
+    return hits, wins
+
+
+def filter_prepare(buf: np.ndarray, out: np.ndarray) -> None:
+    """Joined read bytes -> device code stream into out (0..3, 4=N)."""
+    lib = _require()
+    _check_u8(buf=buf, out=out)
+    if out.size < buf.size:
+        raise ValueError("filter_prepare: out is shorter than buf")
+    lib.fk_filter_prepare(_ptr(buf), buf.size, _ptr(out))
+
+
+def filter_bitmap_hits(buf: np.ndarray, starts: np.ndarray,
+                       lens: np.ndarray, k: int, words: np.ndarray,
+                       halo: int):
+    """Per-read (hits, valid windows) from the device hit bitmap.
+
+    buf holds the reads' joined bytes; the window starting at joined
+    position p is bit p + halo of `words` (uint32 little-endian, the
+    filter_device._filter_step packing)."""
+    lib = _require()
+    _check_u8(buf=buf)
+    _check(np.int64, starts=starts, lens=lens)
+    _check(np.uint32, words=words)
+    n = int(starts.size)
+    hits, wins = _hits_out(n)
+    lib.fk_filter_bitmap_hits(
+        _ptr(buf), _ptr(starts), _ptr(lens), n, k, _ptr(words), halo,
+        _ptr(hits), _ptr(wins))
+    return hits, wins
+
+
+def filter_bitmap_hits2(buf: np.ndarray, byte_starts: np.ndarray,
+                        joined: np.ndarray, lens: np.ndarray, k: int,
+                        words: np.ndarray, halo: int):
+    """filter_bitmap_hits with separate byte (block) and bitmap
+    (joined-stream) coordinates: the offsets-based zero-copy flow."""
+    lib = _require()
+    _check_u8(buf=buf)
+    _check(np.int64, byte_starts=byte_starts, joined=joined, lens=lens)
+    _check(np.uint32, words=words)
+    n = int(byte_starts.size)
+    hits, wins = _hits_out(n)
+    lib.fk_filter_bitmap_hits2(
+        _ptr(buf), _ptr(byte_starts), _ptr(joined), _ptr(lens), n, k,
+        _ptr(words), halo, _ptr(hits), _ptr(wins))
+    return hits, wins
+
+
+def parse_spectrum(buf, k: int, sep: bytes):
+    """Parse a sorted KMER<sep>COUNT buffer -> (codes u64, counts i64).
+
+    Returns None when the input is not a clean sorted uppercase
+    spectrum (callers fall back to the Python parser).  One OpenMP C
+    pass."""
+    lib = _require()
+    if len(sep) != 1:
+        raise ValueError("parse_spectrum takes a 1-byte separator")
+    src = np.frombuffer(memoryview(buf), dtype=np.uint8)
+    n_max = src.size // (k + 2) + 2
+    codes = np.empty(n_max, np.uint64)
+    counts = np.empty(n_max, np.int64)
+    m = int(lib.fk_parse_spectrum(_ptr(src), src.size, k, sep[0],
+                                  _ptr(codes), _ptr(counts), n_max))
+    if m == (1 << 64) - 1:  # (size_t)-1
+        return None
+    return codes[:m], counts[:m]
 
 
 if __name__ == "__main__":

@@ -152,6 +152,72 @@ def test_api_never_imports_jax(fixtures_dir, tmp_path):
                            str(sum(want.values()))]
 
 
+def _filter_inputs(fixtures_dir, tmp_path):
+    """A FASTQ of the records of multi.fa and a k=5 spectrum of tiny.fa."""
+    from oracle.scalar import parse_fasta_text
+
+    recs = parse_fasta_text(open(os.path.join(fixtures_dir,
+                                              "multi.fa")).read())
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@{h}\n{s}\n+\n{'I' * len(s)}\n"
+                          for h, s in recs))
+    spec = tmp_path / "spec.tsv"
+    spec.write_text("\n".join(spectrum_lines(count_fasta_file(
+        os.path.join(fixtures_dir, "tiny.fa"), 5), 5)) + "\n")
+    return str(fq), str(spec)
+
+
+def test_filter_never_imports_jax(fixtures_dir, tmp_path):
+    """`filter` by both engines, single-end and paired, and the API's
+    `filter_reads`, in a fresh interpreter: the same bytes each time."""
+    fq, spec = _filter_inputs(fixtures_dir, tmp_path)
+    out = _without_jax(
+        "import findkmer_torch as fkt\n"
+        "from findkmer_torch.cli import main\n"
+        "for e in ('host', 'device'):\n"
+        f"    rc = main(['filter', '-i', {fq!r}, '--spectrum', {spec!r},"
+        " '-o', e + '.fq', '--engine', e, '--device', 'cpu'])\n"
+        "    assert rc == 0, rc\n"
+        f"    rc = main(['filter', '-i', {fq!r}, {fq!r}, '--paired',"
+        f" '--spectrum', {spec!r}, '-o', e + '1.fq,' + e + '2.fq',"
+        " '--engine', e, '--device', 'cpu'])\n"
+        "    assert rc == 0, rc\n"
+        f"print(*fkt.filter_reads({fq!r}, {spec!r}, 'api.fq',"
+        " engine='device', device='cpu'))\n"
+        "import findkmer_torch.filter, findkmer_torch.filter_device\n"
+        "import findkmer_torch.spectra\n",
+        tmp_path,
+    )
+    kept, seen = map(int, out.split())
+    assert 0 < kept < seen
+    want = (tmp_path / "host.fq").read_bytes()
+    for name in ("device.fq", "api.fq", "host1.fq", "device1.fq",
+                 "device2.fq"):
+        assert (tmp_path / name).read_bytes() == want
+
+
+def test_filter_engine_device_without_cuda_exits_2(fixtures_dir, tmp_path,
+                                                   capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    fq, spec = _filter_inputs(fixtures_dir, tmp_path)
+    out = tmp_path / "o.fq"
+    rc = torch_cli.main(["filter", "-i", fq, "--spectrum", spec, "-o",
+                         str(out), "--engine", "device"])
+    assert rc == 2  # --device defaults to cuda
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+    assert not out.exists()  # no output opened, nothing scored on the CPU
+    import findkmer_torch as fkt
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        fkt.filter_reads(fq, spec, str(out), engine="device")
+    assert not out.exists()
+    # the default engine is the host scan: no device needed
+    assert torch_cli.main(["filter", "-i", fq, "--spectrum", spec, "-o",
+                           str(out)]) == 0
+    assert out.stat().st_size
+
+
 def test_port_sources_do_not_import_jax():
     # neither jax nor anything of the JAX package, at module level or
     # inside a function, not even its jax-free modules: the port keeps its
@@ -160,7 +226,8 @@ def test_port_sources_do_not_import_jax():
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
     for new in ("streaming.py", "spill.py", "utils/checkpoint.py",
-                "utils/logging.py", "parallel/multihost.py"):
+                "utils/logging.py", "parallel/multihost.py", "filter.py",
+                "filter_device.py", "spectra.py"):
         assert PORT / new in sources
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pat.search(p.read_text())]

@@ -343,6 +343,148 @@ def test_native_entry_points_equal():
         native.format_spectrum(codes, counts, 21, b"::")
 
 
+def _fuzzed_reads(seed, n=300):
+    """(joined bytes with one N between reads, starts, lens) of fuzzed
+    reads: every byte class of _dna_bytes, empty and all-N reads."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 200, n)
+    lens[::37] = 0
+    lens[3] = 50
+    reads = [bytes(_dna_bytes(seed + i, int(ln))) for i, ln in
+             enumerate(lens)]
+    reads[3] = b"N" * 50
+    assert sum(map(len, reads)) == lens.sum()
+    starts = np.zeros(n, np.int64)
+    np.cumsum(lens[:-1] + 1, out=starts[1:])
+    return reads, starts, lens.astype(np.int64)
+
+
+@pytest.mark.parametrize("k, canonical", [(1, False), (7, True),
+                                          (16, True), (21, False),
+                                          (31, True)])
+def test_filter_native_functions_equal(k, canonical):
+    """fk_filter_hits, fk_filter_prepare, fk_filter_bitmap_hits(2) through
+    the port's wrappers and the originals, on fuzzed reads."""
+    _need_native()
+    reads, starts, lens = _fuzzed_reads(k)
+    buf = np.frombuffer(b"N".join(reads), np.uint8)
+    rng = np.random.default_rng(k)
+    codes, valid = jax_filter.window_codes_host(bytes(buf), k)
+    table = np.unique(np.concatenate([
+        codes[valid][rng.random(int(valid.sum())) < 0.3],
+        rng.integers(0, 4 ** k, 50, dtype=np.uint64)]))
+    if canonical:
+        table = np.unique(np.minimum(
+            table, jax_spectra.revcomp_codes_u64(table, k)))
+    spec = jax_filter.FilterSpec(k=k, codes=table, canonical=canonical)
+    args = (buf, starts, lens, k, canonical, spec.codes, spec._bloom,
+            spec._shift)
+    got, want = native.filter_hits(*args), jax_native.filter_hits(*args)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[0].sum() > 0
+    out_a, out_b = (np.full(buf.size + 9, 7, np.uint8) for _ in range(2))
+    native.filter_prepare(buf, out_a)
+    jax_native.filter_prepare(buf, out_b)
+    np.testing.assert_array_equal(out_a, out_b)
+    words = rng.integers(0, 2 ** 32, (buf.size + 64) // 32 + 1,
+                         dtype=np.uint64).astype(np.uint32)
+    halo = k - 1
+    got = native.filter_bitmap_hits(buf, starts, lens, k, words, halo)
+    want = jax_native.filter_bitmap_hits(buf, starts, lens, k, words, halo)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    # the block form: reads at other byte offsets of a block buffer
+    block = np.frombuffer(b"@x\n".join(reads), np.uint8)
+    byte_starts = np.zeros(len(reads), np.int64)
+    np.cumsum(lens[:-1] + 3, out=byte_starts[1:])
+    got = native.filter_bitmap_hits2(block, byte_starts, starts, lens, k,
+                                     words, halo)
+    want = jax_native.filter_bitmap_hits2(block, byte_starts, starts, lens,
+                                          k, words, halo)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        native.filter_bitmap_hits(buf, starts, lens, k,
+                                  words.astype(np.int64), halo)
+    with pytest.raises(ValueError):
+        native.filter_prepare(buf, out_a[:10])
+
+
+@pytest.mark.parametrize("k", [1, 5, 21, 31])
+def test_spectrum_parsing_equal(tmp_path, k):
+    """parse_spectrum, _infer_k, _parse_binary, read_spectrum and
+    canonize_runs of the port's spectra.py against the originals: a clean
+    sorted spectrum, an unsorted one (the C parser declines), gzipped,
+    and a multi-byte separator."""
+    _need_native()
+    from findkmer_torch import spectra
+
+    rng = np.random.default_rng(k)
+    codes = np.unique(rng.integers(0, 4 ** k, 400, dtype=np.uint64))
+    counts = rng.integers(1, 10 ** 9, codes.size)
+    text = bytes(jax_native.format_spectrum(codes, counts, k, b"\t"))
+    for a, b in zip(native.parse_spectrum(text, k, b"\t"),
+                    jax_native.parse_spectrum(text, k, b"\t")):
+        np.testing.assert_array_equal(a, b)
+    lines = text.splitlines(keepends=True)
+    shuffled = b"".join(lines[::-1])
+    assert native.parse_spectrum(shuffled, k, b"\t") is None
+    assert jax_native.parse_spectrum(shuffled, k, b"\t") is None
+    with pytest.raises(ValueError):
+        native.parse_spectrum(text, k, b"::")
+    paths = {"sorted.tsv": text, "unsorted.tsv": shuffled,
+             "sep.tsv": text.replace(b"\t", b"::"),
+             "empty.tsv": b"", "long.tsv": b"A" * 40 + b"\t3\n"}
+    for name, body in paths.items():
+        (tmp_path / name).write_bytes(body)
+    with gzip.open(tmp_path / "gz.tsv", "wb") as f:
+        f.write(text)
+    for name in list(paths) + ["gz.tsv"]:
+        p = str(tmp_path / name)
+        sep = b"::" if name == "sep.tsv" else b"\t"
+        assert spectra._infer_k(p, sep) == jax_spectra._infer_k(p, sep)
+        kk = jax_spectra._infer_k(p, sep)
+        if kk is not None and len(sep) == 1:
+            got = spectra._parse_binary(p, kk, sep)
+            want = jax_spectra._parse_binary(p, kk, sep)
+            assert (got is None) == (want is None), name
+            for a, b in zip(got or (), want or ()):
+                np.testing.assert_array_equal(a, b)
+        if name != "empty.tsv":
+            assert spectra.read_spectrum(p, sep.decode()) == \
+                jax_spectra.read_spectrum(p, sep.decode())
+    for a, b in zip(spectra.canonize_runs(codes, counts, k),
+                    jax_spectra.canonize_runs(codes, counts, k)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(spectra.canonize_runs(codes[:0], counts[:0], k),
+                    jax_spectra.canonize_runs(codes[:0], counts[:0], k)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_spectrum_dict_cap_equal(tmp_path, monkeypatch):
+    from findkmer_torch import spectra
+
+    p = tmp_path / "s.tsv"
+    p.write_text("".join(f"{c}\t1\n" for c in ("AC", "AG", "AT", "CA")))
+    monkeypatch.setenv("FINDKMER_DICT_MAX", "2")
+    assert spectra._dict_max() == jax_spectra._dict_max() == 2
+    errs = []
+    for mod in (spectra, jax_spectra):
+        with pytest.raises(ValueError) as e:
+            mod.read_spectrum(str(p))
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+    p.write_text("AC\tx\n")
+    monkeypatch.setenv("FINDKMER_DICT_MAX", "nan")
+    assert spectra._dict_max() == jax_spectra._dict_max()
+    for mod in (spectra, jax_spectra):
+        with pytest.raises(ValueError) as e:
+            mod.read_spectrum(str(p))
+        errs.append(str(e.value))
+    assert errs[2] == errs[3]
+
+
 # ---- readers ----------------------------------------------------------------
 
 def _chunks(reader):
@@ -377,6 +519,23 @@ def test_fasta_reader_gzip_crlf_and_pushback(fixtures_dir, tmp_path):
         assert s.read() == raw
     f, own = fasta.open_maybe_gzip(io.BytesIO(gzip.compress(raw)))
     assert not own and f.read() == raw
+
+
+@pytest.mark.parametrize("block", [5, 64, 1 << 22])
+def test_fasta_reader_line_endings_equal(tmp_path, block):
+    """Headers ended by LF, CRLF or a lone CR, mixed in one file of many
+    short records, and an unterminated last header: the same chunks."""
+    rng = np.random.default_rng(block)
+    ends = [b"\n", b"\r\n", b"\r"]
+    body = b"".join(
+        b">r%d x%s%s%s" % (i, ends[i % 3], bytes(_dna_bytes(i, int(n))),
+                            ends[(i // 3) % 3])
+        for i, n in enumerate(rng.integers(0, 90, 300)))
+    path = tmp_path / "mixed.fa"
+    path.write_bytes(body + b">last header")
+    for strip_ws in (True, False):
+        assert _chunks(fasta.FastaReader(str(path), block, strip_ws)) == \
+            _chunks(jax_fasta.FastaReader(str(path), block, strip_ws))
 
 
 def _reads(fixtures_dir, seed=3):
