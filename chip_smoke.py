@@ -123,12 +123,15 @@ exit code is non-zero and the final ok-line is not printed.
      kept/seen must equal the host engine's: --canonical (the offsets
      flow, and FINDKMER_FILTER_FAST=0 the list flow), the FASTA reads,
      --paired --pair-mode both --invert, --min-frac 0.5, the subset at
-     k=15 and k=31; each device run's batch steps must have run on cuda,
-     and none of K1-K3 may launch.  Reads/s and bases/s of every run; then
-     the device step alone on one staged batch of 256 x 65536 windows:
-     median CUDA-event ms of the step and of its extraction, membership
-     and bitmap, each beside the bytes bound of its own inputs and
-     outputs, and the member table's bytes
+     k=15 and k=31 (at k=31 also with the CLI's defaults, whose auto pick
+     on cuda is the device engine); each device run's batch steps must
+     have run on cuda, and none of K1-K3 may launch.  Reads/s and bases/s
+     of every run; then the device step alone on one staged batch of 256
+     x 65536 windows: median CUDA-event ms of the step and of its
+     extraction, membership and bitmap, each beside the bytes bound of its
+     own inputs and outputs, the member table's bytes, and the spectrum
+     load's host seconds by part (parse, fold, the whole load, the host
+     engine's prefilter)
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -1779,18 +1782,41 @@ def _run_filter(args, env: dict, outs) -> dict:
             "out_bytes": [b for _, b in hashed]}
 
 
+def _spectrum_load_split(path: str) -> tuple:
+    """Host seconds of a canonical spectrum's load, by part: `parse_s`
+    (k inference and the C parser), `fold_s` (the canonical fold), the
+    whole `FilterSpec.load` that every run of both engines pays (the parse
+    and fold again, from a warm page cache) and `prefilter_s`, the bit
+    table that only the host engine builds.  -> (the spec, the seconds)."""
+    from findkmer_torch import spectra
+    from findkmer_torch.filter import FilterSpec
+
+    clock = time.perf_counter
+    t0 = clock()
+    k = spectra._infer_k(path, b"\t")
+    parsed = spectra._parse_binary(path, k, b"\t")
+    if parsed is None:
+        raise AssertionError(f"{path}: the C spectrum parser refused it")
+    t1 = clock()
+    spectra.canonize_runs(*parsed, k)
+    t2 = clock()
+    spec = FilterSpec.load(path, canonical=True)
+    t3 = clock()
+    spec.prefilter()
+    t4 = clock()
+    return spec, {"parse_s": t1 - t0, "fold_s": t2 - t1, "load_s": t3 - t2,
+                  "prefilter_s": t4 - t3}
+
+
 def phase_filter_step(spec_path: str, seqs: np.ndarray) -> dict:
     """The device step alone on one staged batch of 256 x 65536 windows
     (16.7 Mbase of the reads), k = 21 --canonical against the reference's
     spectrum: median CUDA-event ms of the whole step and of its three
     parts, each beside the bytes bound of its own inputs and outputs; and
-    the host seconds of `FilterSpec.load` of that spectrum."""
-    from findkmer_torch.filter import FilterSpec
+    the host seconds of loading that spectrum (`_spectrum_load_split`)."""
     from findkmer_torch.io import native
 
-    t0 = time.perf_counter()
-    spec = FilterSpec.load(spec_path, canonical=True)
-    load_s = time.perf_counter() - t0  # every run of both engines pays it
+    spec, load = _spectrum_load_split(spec_path)
     dev = filter_device.DeviceFilter(spec, device="cuda")
     k, B, L, R = dev.k, dev.B, dev.L, dev.R
     joined = np.full((seqs.shape[0], READ_LEN + 1), ord("N"), np.uint8)
@@ -1826,7 +1852,7 @@ def phase_filter_step(spec_path: str, seqs: np.ndarray) -> dict:
     valid = float((codes != window_ops.sentinel(codes.dtype)).float().mean())
     say("filter_device_step", k=k, canonical=True, batch=[B, L],
         bases=dev.need, member_codes=int(members.numel()),
-        member_bytes=dev.member_bytes, spectrum_load_s=load_s,
+        member_bytes=dev.member_bytes, spectrum_load=load,
         valid_share=valid,
         hit_share=float(hit.float().mean()), device=str(members.device),
         bases_per_s=dev.need / out["step"]["ms"] * 1e3, **out)
@@ -1858,40 +1884,47 @@ def phase_filter(tmp: str, seed: int) -> dict:
     out1 = os.path.join(tmp, "kept.fq")
     pair_outs = [os.path.join(tmp, f"kept{i}.fq") for i in (1, 2)]
     k21 = ["--spectrum", spec[21], "--canonical"]
-    # (name, args, outputs, bases, the device runs' environments)
+    device = ["--engine", "device", "--device", "cuda"]
+    # (name, args, outputs, bases, the device runs' (environment, engine
+    # arguments); no engine arguments = the CLI's defaults, whose auto
+    # pick on --device cuda is the device engine)
     runs = [
         ("fastq_canonical", ["-i", p["reads.fq"], "-o", out1] + k21, [out1],
-         FILTER_READS, [{}, {"FINDKMER_FILTER_FAST": "0"}]),
+         FILTER_READS, [({}, device), ({"FINDKMER_FILTER_FAST": "0"}, device)]),
         ("fasta_canonical", ["-i", p["reads.fa"], "-o", out1] + k21, [out1],
-         FASTA_READS, [{}]),
+         FASTA_READS, [({}, device)]),
         ("paired_both_invert",
          ["-i", p["r1.fq"], p["r2.fq"], "--paired", "--pair-mode", "both",
           "--invert", "-o", ",".join(pair_outs)] + k21, pair_outs,
-         2 * FILTER_PAIRS, [{}]),
+         2 * FILTER_PAIRS, [({}, device)]),
         ("min_frac", ["-i", p["reads.fq"], "-o", out1, "--min-frac", "0.5"]
-         + k21, [out1], FILTER_READS, [{}]),
+         + k21, [out1], FILTER_READS, [({}, device)]),
         ("subset_k15", ["-i", p["subset.fq"], "-o", out1, "--spectrum",
-                        spec[15]], [out1], FILTER_SUBSET, [{}]),
+                        spec[15]], [out1], FILTER_SUBSET, [({}, device)]),
         ("subset_k31", ["-i", p["subset.fq"], "-o", out1, "--spectrum",
-                        spec[31]], [out1], FILTER_SUBSET, [{}]),
+                        spec[31]], [out1], FILTER_SUBSET,
+         [({}, device), ({}, [])]),
     ]
     results = []
     with _StepTap() as steps:
-        for name, args, outs, n_reads, device_envs in runs:
+        for name, args, outs, n_reads, device_runs in runs:
             host = _run_filter(args + ["--engine", "host"], {}, outs)
-            for env in device_envs:
+            for env, engine_args in device_runs:
                 steps.devices.clear()
-                got = _run_filter(args + ["--engine", "device", "--device",
-                                          "cuda"], env, outs)
+                got = _run_filter(args + engine_args, env, outs)
                 for key in ("kept", "seen", "sha256"):
                     if got[key] != host[key]:
                         raise AssertionError(
-                            f"filter {name} {env}: device {key} {got[key]} "
-                            f"differs from the host engine's {host[key]}")
+                            f"filter {name} {env} {engine_args}: device "
+                            f"{key} {got[key]} differs from the host "
+                            f"engine's {host[key]}")
                 if set(steps.devices) != {"cuda"}:
                     raise AssertionError(
-                        f"filter {name}: device steps ran on {steps.devices}")
-                run = {"run": name, "env": env, "seen": got["seen"],
+                        f"filter {name} {engine_args}: device steps ran on "
+                        f"{steps.devices}")
+                run = {"run": name, "env": env,
+                       "engine_args": engine_args or "the CLI's defaults",
+                       "seen": got["seen"],
                        "kept": got["kept"], "sha256": got["sha256"],
                        "out_bytes": got["out_bytes"],
                        "device_steps": steps.devices["cuda"]}

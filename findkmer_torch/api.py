@@ -230,7 +230,8 @@ def filter_reads(
     Paired (paired=True): inputs = (R1, R2), output = (OUT1, OUT2);
     pairs are kept/dropped together (pair_mode "any" or "both").
     engine: "host" (OpenMP C scan) / "device" (membership on `device`,
-    where cuda without a card raises) / "auto" (the C scan when built).
+    where cuda without a card raises) / "auto" (device on a CUDA
+    `device`, host on the CPU).
     Returns (reads_or_pairs_kept, seen)."""
     from findkmer_torch.cli import filter_into  # gz by extension, as the CLI
     from findkmer_torch.filter import FilterSpec, _resolve_engine

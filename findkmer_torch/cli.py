@@ -584,9 +584,9 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--engine", choices=["auto", "host", "device"],
                     default="auto",
                     help="membership scorer: host = OpenMP C scan, "
-                         "device = CUDA membership probe (auto picks "
-                         "the C scan when built, else device on a "
-                         "CUDA card)")
+                         "device = membership probe on --device (auto "
+                         "picks device on --device cuda, host on "
+                         "--device cpu)")
     pf.add_argument("--paired", action="store_true",
                     help="paired-end mode: -i R1 R2, pairs kept/dropped "
                          "together, -o OUT_R1,OUT_R2 (outputs stay "

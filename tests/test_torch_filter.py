@@ -13,6 +13,7 @@ which that file holds byte-identical to its device engine.
 
 import functools
 import gzip
+import io
 import os
 
 import jax.numpy as jnp
@@ -124,10 +125,13 @@ def test_filter_spec_load_equal(data, tmp_path, spec, sep, canonical, lo,
                                       min_count=lo, max_count=hi)
     want = jax_filter.FilterSpec.load(path, sep=sep, canonical=canonical,
                                       min_count=lo, max_count=hi)
-    assert (got.k, got.canonical, got._shift) == \
+    assert got._bloom is None  # built at the host engine's first lookup
+    bloom, shift = got.prefilter()
+    assert (got.k, got.canonical, shift) == \
         (want.k, want.canonical, want._shift)
     np.testing.assert_array_equal(got.codes, want.codes)
-    np.testing.assert_array_equal(got._bloom, want._bloom)
+    np.testing.assert_array_equal(bloom, want._bloom)
+    assert got.prefilter()[0] is bloom
     assert got.codes.dtype == np.uint64 and got.codes.size
 
 
@@ -281,7 +285,7 @@ def test_device_filter_begin_offsets_equal(data, name, canonical):
     want = jdev.finish(jdev.begin_offsets(segs, nbases, nreads))
     host = [np.concatenate(x) for x in zip(*(
         native.filter_hits(b, ss, ln, ours.k, canonical, ours.codes,
-                           ours._bloom, ours._shift)
+                           *ours.prefilter())
         for b, ss, _, ln, _, _ in segs))]
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -435,22 +439,25 @@ def test_cli_filter_sam_input_exits_2(data, tmp_path, capsys, engine):
 
 def test_cli_filter_help_equal():
     """Flags, defaults and choices of `filter` are the JAX CLI's, plus
-    --device; the help texts differ only in naming CUDA for the TPU."""
+    --device; the help texts are the same apart from --engine's, which
+    names the port's auto rule (device on --device cuda)."""
     def actions(build):
         p = build()
         sub = next(a for a in p._actions if hasattr(a, "choices")
                    and a.choices and "filter" in a.choices)
         pf = sub.choices["filter"]
         return pf.epilog, {tuple(a.option_strings): (
-            (a.help or "").replace("CUDA membership probe",
-                                   "TPU sort-merge probe")
-            .replace("a CUDA card", "a real accelerator"),
-            a.default, a.choices, a.metavar, a.nargs, a.required)
-            for a in pf._actions}
+            a.help or "", a.default, a.choices, a.metavar, a.nargs,
+            a.required) for a in pf._actions}
 
     (ours_epi, ours), (theirs_epi, theirs) = (actions(cli.build_parser),
                                               actions(jax_cli.build_parser))
     assert ours.pop(("--device",))[1:3] == ("cuda", ["cuda", "cpu"])
+    engine, theirs_engine = ours.pop(("--engine",)), theirs.pop(("--engine",))
+    assert engine[1:] == theirs_engine[1:] == (
+        "auto", ["auto", "host", "device"], None, None, False)
+    assert "auto picks device on --device cuda, host on --device cpu" in \
+        engine[0]
     assert ours == theirs and ours_epi == theirs_epi
 
 
@@ -491,20 +498,25 @@ def test_filter_reads_equal(data, tmp_path, monkeypatch, engine):
 def test_resolve_engine(monkeypatch):
     assert port_filter._resolve_engine("host") == "host"
     assert port_filter._resolve_engine("device", "cpu") == "device"
-    monkeypatch.setattr(native, "available", lambda: True)
-    assert port_filter._resolve_engine("auto", "cuda") == "host"
-    monkeypatch.setattr(native, "available", lambda: False)
-    assert port_filter._resolve_engine("auto", "cpu") == "host"
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert port_filter._resolve_engine("auto", "cuda") == "device"
-    assert port_filter._resolve_engine("auto", "cpu") == "host"
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert port_filter._resolve_engine("auto", "cuda") == "host"
+    # auto follows the requested device alone: neither the C library nor
+    # a card that is there or not changes the pick (a missing card raises
+    # later, where the device is resolved)
+    for built in (True, False):
+        monkeypatch.setattr(native, "available", lambda: built)
+        for card in (True, False):
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: card)
+            assert port_filter._resolve_engine("auto", "cuda") == "device"
+            assert port_filter._resolve_engine("auto") == "device"
+            assert port_filter._resolve_engine(
+                "auto", torch.device("cuda", 0)) == "device"
+            assert port_filter._resolve_engine("auto", "cpu") == "host"
+            assert port_filter._resolve_engine("auto", CPU) == "host"
+            assert port_filter._resolve_engine("host", "cuda") == "host"
 
 
 def test_numpy_host_engine_equal(data, monkeypatch):
-    """Without the C library the host engine scores with numpy (the
-    auto pick stays host on the CPU): the same (hits, windows)."""
+    """Without the C library the host engine scores with numpy: the same
+    (hits, windows)."""
     ours, theirs = _specs(data, "spec21c.tsv", True)
     reads = _fastq_seqs(data / "r.fq")
     want = theirs.hits_batch(reads)
@@ -515,13 +527,31 @@ def test_numpy_host_engine_equal(data, monkeypatch):
     assert ours.hits(b"ACGT" * 10) == theirs.hits(b"ACGT" * 10)
 
 
+@pytest.mark.parametrize("fast", ["1", "0"])
+def test_device_engine_never_builds_prefilter(data, monkeypatch, fast):
+    """The bit-table prefilter is the host engine's: a device-engine run
+    (either flow) leaves it unbuilt, a host-engine run builds it."""
+    monkeypatch.setenv("FINDKMER_FILTER_FAST", fast)
+    monkeypatch.setattr(filter_device, "DeviceFilter", functools.partial(
+        filter_device.DeviceFilter, **SMALL))
+    kept = []
+    for engine in ("device", "host"):
+        spec = port_filter.FilterSpec.load(str(data / "spec21c.tsv"),
+                                           canonical=True)
+        out = io.BytesIO()
+        kept.append(port_filter.filter_file(str(data / "r.fq"), out, spec,
+                                            engine=engine, device=CPU))
+        assert (spec._bloom is None) == (engine == "device"), engine
+    assert kept[0] == kept[1] and kept[0][0] > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("geometry", ["small", "default"])
 def test_device_engine_on_card_equals_host(data, tmp_path, monkeypatch,
                                            capsys, geometry):
-    """On a CUDA card: `filter --engine device --device cuda` (offsets
-    and list flows, single-end and paired, depth 0 and 2) writes the host
-    engine's bytes; the step's bitmap on the card equals the CPU's."""
+    """On a CUDA card: `filter --engine device --device cuda` and the
+    auto pick (offsets and list flows, single-end and paired, depth 0 and
+    2) write the host engine's bytes; the step's bitmap on the card equals the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     if geometry == "small":
@@ -538,7 +568,7 @@ def test_device_engine_on_card_equals_host(data, tmp_path, monkeypatch,
                       ["--paired"]):
             ins = ["r.fq", "r2.fq"] if "--paired" in extra else ["r.fq"]
             outs = {}
-            for engine in ("host", "device"):
+            for engine in ("host", "device", "auto"):
                 o = [str(tmp_path / f"{engine}{i}.fq") for i in range(
                     len(ins))]
                 rc = cli.main(["filter", "-i", *ins, "--spectrum",
@@ -547,6 +577,7 @@ def test_device_engine_on_card_equals_host(data, tmp_path, monkeypatch,
                 outs[engine] = (rc, [open(p, "rb").read() for p in o],
                                 capsys.readouterr().err)
             assert outs["device"] == outs["host"], (env, extra)
+            assert outs["auto"] == outs["host"], (env, extra)
             assert outs["host"][0] == 0
     rng = np.random.default_rng(1)
     for k, canonical in ((4, False), (15, True), (16, True), (31, True)):

@@ -212,9 +212,19 @@ def test_filter_engine_device_without_cuda_exits_2(fixtures_dir, tmp_path,
     with pytest.raises(RuntimeError, match="is_available"):
         fkt.filter_reads(fq, spec, str(out), engine="device")
     assert not out.exists()
-    # the default engine is the host scan: no device needed
+    # the default engine follows --device: on its default (cuda) it is the
+    # device engine, so without a card it exits 2 before any output, and
+    # the API raises; on --device cpu it is the host scan
+    rc = torch_cli.main(["filter", "-i", fq, "--spectrum", spec, "-o",
+                         str(out)])
+    assert rc == 2
+    assert "torch.cuda.is_available() is False" in capsys.readouterr().err
+    assert not out.exists()
+    with pytest.raises(RuntimeError, match="is_available"):
+        fkt.filter_reads(fq, spec, str(out))
+    assert not out.exists()
     assert torch_cli.main(["filter", "-i", fq, "--spectrum", spec, "-o",
-                           str(out)]) == 0
+                           str(out), "--device", "cpu"]) == 0
     assert out.stat().st_size
 
 
