@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py [--seed N] [--profile]
-                          [--only rowsort|window|stream|filter]
+                          [--only rowsort|window|stream|filter|tools]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
-sm_90a) and nvcc.  Each phase prints one line; any failure raises, so the
-exit code is non-zero and the final ok-line is not printed.
+sm_90a) and nvcc.  Each phase prints one JSON line (its `t`: seconds since
+the start); any failure raises, so the exit code is non-zero and the
+final ok-line is not printed.
 
   1. environment: torch, CUDA, capability (must be 9.0), nvcc, and the
      card's name and power limit as nvidia-smi reports them
@@ -88,36 +89,38 @@ exit code is non-zero and the final ok-line is not printed.
   9. oracle: tests/data fixtures at k=4, k=8, k=4 -z, k=11, k=21
      --canonical and k=31, byte-identical to oracle/scalar.py
  10. entry points: `selftest --device cuda` (3/3 cases bit-exact);
-     `count --per-record` of a seeded FASTA of 2000 records of 100-5000
+     `count --per-record` of a seeded FASTA of 1000 records of 100-5000
      bases with N runs at k=8 and k=21 --canonical, equal byte for byte to
      the same run with --device cpu; `count --per-input` over three
      inputs, each file equal to a single `count` of that input
- 11. the restartable stream: the same genome and geometry through
-     `findkmer_torch.cli stream`, every output held by sha256 to the
-     `count` run of the same flags (phases 6 and 7).  Dense: `stream -k 8
-     --checkpoint D --checkpoint-every 2` by the default step (K2 once a
-     batch) and by the two-stage step (K1 once a batch).  Sparse: `stream
-     -k 21 --canonical --checkpoint D --checkpoint-every 2`: every row
-     sort a K3 launch, four of them for its three checkpoints; the file
-     size of each checkpoint, and from `--stats json` the seconds of their
-     compactions, copies to the host and compressed writes.  Kill and resume: the same sparse stream as a subprocess,
-     SIGKILLed once its first `latest.json` exists and run again to the
-     end (with the default --checkpoint-every: the final checkpoint alone):
-     same bytes, and the `--stats json` totals of the uninterrupted
-     run.  Spill: `count -k 21 --canonical --spill S --sparse-capacity
-     2^25 --sparse-compact-entries 2^26` writes three runs of ~1 GB or
-     more and merges them: same bytes, the run files gone, with the
-     seconds of each spill, the bytes spilled and the seconds of the
-     residual pull and of the merge; then `stream` with both --spill and
-     --checkpoint, killed after a checkpoint that follows a spill, and
-     resumed: same bytes.  Heap-merge finalize:
-     FINDKMER_ORDERED_FINALIZE=0 `count -k 21 --canonical`: same bytes,
-     its finalize seconds beside the ordered finalize's
+ 11. the restartable stream, over a seeded genome of 128 Mbase of its
+     own in batches of 512 x 65536 (five batches, as the main paths'
+     genome makes at 1024 rows, at half the bytes), every output held by
+     sha256 to a `count` run of the same flags over it.  Dense: `stream
+     -k 8 --checkpoint D --checkpoint-every 2` by the default step (K2
+     once a batch) and by the two-stage step (K1 once a batch).  Sparse:
+     `stream -k 21 --canonical --checkpoint D --checkpoint-every 2`: every
+     row sort a K3 launch, four of them for its three checkpoints; the
+     file size of each checkpoint, and from `--stats json` the seconds of
+     their compactions, copies to the host and compressed writes.  Kill
+     and resume: the same sparse stream as a subprocess, SIGKILLed once
+     its first `latest.json` exists and run again to the end (with the
+     default --checkpoint-every: the final checkpoint alone): same bytes,
+     and the `--stats json` totals of the uninterrupted run.  Spill:
+     `count -k 21 --canonical --spill S --sparse-capacity 2^24
+     --sparse-compact-entries 2^25` writes three runs of ~0.5 GB or more
+     and merges them: same bytes, the run files gone, with the seconds of
+     each spill, the bytes spilled and the seconds of the residual pull
+     and of the merge; then `stream` with both --spill and --checkpoint,
+     killed after a checkpoint that follows a spill, and resumed: same
+     bytes.  Heap-merge finalize: FINDKMER_ORDERED_FINALIZE=0 `count -k
+     21 --canonical`: same bytes, its finalize seconds beside the ordered
+     finalize's
  12. read filtering (`filter`, a contaminant screen): a seeded reference
      of 8 Mbase, its spectra counted on the card (k=21 --canonical, k=15,
      k=31), 1,000,000 FASTQ reads of 150 bases (half drawn from the
      reference with 1% substitutions, half from an unrelated seeded
-     genome, 0.2% N), the first 200,000 of them as FASTA, 250,000 R1/R2
+     genome, 0.2% N), the first 50,000 of them as FASTA, 100,000 R1/R2
      pairs of a 400-base insert, and a 50,000-read subset.  Each run by `--engine
      host` and by `--engine device --device cuda`, whose output sha256 and
      kept/seen must equal the host engine's: --canonical (the offsets
@@ -132,6 +135,35 @@ exit code is non-zero and the final ok-line is not printed.
      own inputs and outputs, the member table's bytes, and the spectrum
      load's host seconds by part (parse, fold, the whole load, the host
      engine's prefilter)
+ 13. the spectrum tools over a cohort (the Mash `sketch`/`dist` and
+     kmtricks matrix workload of a small isolate collection): 8 seeded
+     samples of 4,000,000 bases, one ancestor with 0.5-5% of its bases
+     substituted in each and four N gaps, 32 Mbase in all.  On cuda, in
+     this process, each timed (bases/s): `count --per-input -k 21
+     --canonical`, `sketch --per-input -k 21 --canonical -s 1000`,
+     `histo -k 21 --canonical` and `histo -k 8` (K2) of one sample,
+     `count -k 8` and a plain `count -k 21` of it, `count` of the eight as
+     one input, `stats`, then `matrix -k 21 --canonical --min-samples 2`
+     (its counting and its streaming merge timed apart).  Beside that, in
+     three worker processes, the host tools that stream in Python over
+     the per-input spectra: `matrix` with the same flags; `expr` "s1 +
+     s2", "s1 * s2", "s1 ~ s2" and "s1 - s2"; `diff`, `sort`, `topn` and
+     `query`.  Then, alone in this process, those that take the C paths:
+     `merge`, `intersect` and `subtract` (both modes) of two samples,
+     `info`, `histo --from-spectrum`, `similarity` of two spectra,
+     `merge` of the eight, `sketch` of each spectrum, `similarity` over
+     the eight sketches (28 pairs), `canonize` of the plain count.  Each
+     host tool timed (seconds, input lines/s).  Must hold, by sha256:
+     `matrix -k` equals `matrix` over the per-input spectra, each `sketch
+     -k` the
+     sketch of its spectrum, each recounting `histo` the `histo
+     --from-spectrum` of its count (k=21 and k=8), the merge of the eight
+     their count as one input, `canonize` of the plain count the
+     `--canonical` count, `sort` of a sorted spectrum itself, and the
+     `expr` results `merge`, `intersect`, `subtract --mode counters` and
+     `--mode kmers`; `info` reads a sorted canonical k=21 spectrum,
+     `query` answers each k-mer, `diff` exits 1.  Every row sort of the
+     phase is a K3 launch, K2 launches in the two k=8 runs alone, K1 never
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -144,14 +176,14 @@ what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
 the instructions of its production kernels by opcode); with --only window
 phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
 the quick check of an edit to those kernels; with --only stream phases
-1, 2 and 11 (which then makes its own `count` runs to compare with); with
---only filter phases 1, 2 and 12.  Each of the four prints no summary and
-no ok-line.
+1, 2 and 11; with --only filter phases 1, 2 and 12; with --only tools
+phases 1, 2 and 13.  Each of the five prints no summary and no ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
 launches on the main paths: the `count` runs, each run that phase 11
-makes in this process, and the filter runs of phase 12, which launch none
-(`launches_by_path`), each counted from 0; its
+makes in this process, the filter runs of phase 12, which launch none,
+and the runs on the card of phase 13 (`launches_by_path`), each counted
+from 0; its
 ms beside the plain version's, the one
 library call's where there is one, and its bound); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -228,6 +260,9 @@ DENSE_ROUTES = (("fused", "auto", "fused"),
                 ("two_stage", "auto", "two_stage"),
                 ("scatter", "scatter", "fused"))
 PER_RECORD_RUNS = ((8, []), (21, ["--canonical"]))
+# records of the --per-record runs: k=21 on the card and on the host is
+# most of phase 10, so the depth that leaves phase 13 its time
+PER_RECORD_RECORDS = 1000
 PER_RECORD_GEOM = ["--chunk-len", "8192"]  # a row holds any one record
 # the row sorts of a 256 Mbase sparse count at 1024 x 65536 batches: the
 # raw compaction (k=21, k=15) and the count-carrying one (k=21)
@@ -256,8 +291,14 @@ ORACLE_RUNS = ((4, []), (8, []), (4, ["-z"]), (11, []),
                (21, ["--canonical"]), (31, []))
 
 
+_START = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line of a phase, with `t`: seconds since the script
+    started."""
+    print(json.dumps({"phase": phase, **kv,
+                      "t": time.perf_counter() - _START}), flush=True)
 
 
 def phase_environment() -> str:
@@ -889,7 +930,7 @@ def _read_and_delete(path: str) -> bytes:
     return data
 
 
-def _sha256_and_delete(path: str) -> tuple:
+def _sha256(path: str) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
         while True:
@@ -897,9 +938,13 @@ def _sha256_and_delete(path: str) -> tuple:
             if not block:
                 break
             h.update(block)
-    size = os.path.getsize(path)
+    return h.hexdigest()
+
+
+def _sha256_and_delete(path: str) -> tuple:
+    digest, size = _sha256(path), os.path.getsize(path)
     os.unlink(path)
-    return h.hexdigest(), size
+    return digest, size
 
 
 def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
@@ -1013,15 +1058,19 @@ def phase_sparse_device_step(fasta: str) -> None:
     torch.cuda.empty_cache()
 
 
-STREAM_GEOM = ["--batch-rows", "1024", "--chunk-len", "65536", "--device",
+# phase 11 runs on a genome of its own, half the main paths' in bases and
+# in batch rows: the same five batches and checkpoint schedule, and half
+# the bytes for zlib, which is nearly all of the phase
+STREAM_GENOME_BASES = GENOME_BASES // 2
+STREAM_GEOM = ["--batch-rows", "512", "--chunk-len", "65536", "--device",
                "cuda"]
 STREAM_SPARSE = ["-k", "21", "--canonical"]
-# three runs of ~66 M entries (~1 GB) or more: a compaction a batch, and a
-# store of one batch's distinct 21-mers (~66 M) is over the capacity
+# three runs of ~33 M entries (~0.5 GB) or more: a compaction a batch, and
+# a store of one batch's distinct 21-mers (~33 M) is over the capacity
 # row sorts of the sparse stream over the seeded genome (phase_stream)
 SPARSE_STREAM_SORTS = 4
-SPILL_FLAGS = ["--sparse-capacity", str(1 << 25),
-               "--sparse-compact-entries", str(1 << 26)]
+SPILL_FLAGS = ["--sparse-capacity", str(1 << 24),
+               "--sparse-compact-entries", str(1 << 25)]
 STAT_TOTALS = ("records", "bases", "valid_bases", "batches", "rows",
                "h2d_bytes")
 
@@ -1113,25 +1162,26 @@ def _kill_then_resume(args, resume_args, ready, what: str) -> dict:
             "resume_s": time.perf_counter() - t0}
 
 
-def phase_stream(tmp: str, fasta: str, want: dict) -> dict:
+def phase_stream(tmp: str, seed: int) -> dict:
     """The restartable stream, the disk spill and the heap-merge finalize
-    at 256 Mbase (phase 11 of the module docstring).  `want`: the sha256
-    of the `count` runs' outputs ("dense", "sparse") and the sparse count's
-    phases; made here when empty (--only stream).  -> {kernel: {run:
-    launches}} of the runs made in this process, the counts set to 0 just
-    before each run and read just after it (the killed and resumed streams
-    are processes of their own: not counted)."""
-    if not want:
-        want = {}
-        for name, flags in (("dense", ["-k", "8"]),
-                            ("sparse", STREAM_SPARSE)):
-            out = os.path.join(tmp, f"count_{name}.tsv")
-            stats, _ = run_cli(["count", "-i", fasta, "-o", out, "--stats",
-                                "json"] + flags + STREAM_GEOM)
-            want[name], _ = _sha256_and_delete(out)
-            want[f"{name}_phases"] = stats["phases"]
-            say("stream_reference_count", run=name, sha256=want[name],
-                wall_s=stats["wall_s"], batches=stats["batches"])
+    over a seeded genome of STREAM_GENOME_BASES (phase 11 of the module
+    docstring), each output held to the `count` run of the same flags.
+    -> {kernel: {run: launches}} of the runs made in this process, the
+    counts set to 0 just before each run and read just after it (the
+    killed and resumed streams are processes of their own: not
+    counted)."""
+    fasta = os.path.join(tmp, "stream_genome.fa")
+    write_genome(fasta, seed + 5, total=STREAM_GENOME_BASES)
+    want = {}
+    for name, flags in (("dense", ["-k", "8"]), ("sparse", STREAM_SPARSE)):
+        out = os.path.join(tmp, f"count_{name}.tsv")
+        stats, _ = run_cli(["count", "-i", fasta, "-o", out, "--stats",
+                            "json"] + flags + STREAM_GEOM)
+        want[name], _ = _sha256_and_delete(out)
+        want[f"{name}_phases"] = stats["phases"]
+        say("stream_reference_count", run=name, sha256=want[name],
+            bases=STREAM_GENOME_BASES, wall_s=stats["wall_s"],
+            batches=stats["batches"])
     wrappers = {"histogram_cuda": histogram_cuda,
                 "fused_window_histogram_cuda": fused_window_histogram_cuda,
                 "sort_rows_cuda": sort_rows_cuda}
@@ -1315,6 +1365,7 @@ def phase_stream(tmp: str, fasta: str, want: dict) -> dict:
                 + STREAM_SPARSE + STREAM_GEOM)
     finally:
         del os.environ["FINDKMER_ORDERED_FINALIZE"]
+    os.unlink(fasta)
     if not sorts.calls or launched["sort_rows_cuda"] != sorts.calls:
         raise AssertionError(
             f"heap-merge count: launches {launched} for {sorts.calls} row "
@@ -1359,14 +1410,19 @@ def write_genome(path: str, seed: int, total: int = GENOME_BASES) -> None:
                     ln = int(rng.integers(100, longest))
                     s = int(rng.integers(0, max(1, n - ln)))
                     seq[s : s + ln] = fill
-            f.write(f">chr{r + 1} seeded record {r + 1}\n".encode())
-            full = n // 80 * 80
-            body = np.empty((full // 80, 81), np.uint8)
-            body[:, :80] = seq[:full].reshape(-1, 80)
-            body[:, 80] = ord("\n")
-            f.write(body.tobytes())
-            if n > full:
-                f.write(seq[full:].tobytes() + b"\n")
+            _write_record(f, f"chr{r + 1} seeded record {r + 1}", seq)
+
+
+def _write_record(f, header: str, seq: np.ndarray) -> None:
+    """One FASTA record of the uint8 bases `seq`, 80 bases a line."""
+    f.write(f">{header}\n".encode())
+    full = seq.size // 80 * 80
+    body = np.empty((full // 80, 81), np.uint8)
+    body[:, :80] = seq[:full].reshape(-1, 80)
+    body[:, 80] = ord("\n")
+    f.write(body.tobytes())
+    if seq.size > full:
+        f.write(seq[full:].tobytes() + b"\n")
 
 
 def phase_layers(fasta: str) -> None:
@@ -1493,7 +1549,6 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
     if profile:
         phase_profile(fasta)
     runs = []
-    digests = {}
     histogram_cuda.launches = 0
     fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = 0
@@ -1535,14 +1590,13 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
                    "device": stats["device"]}
             say("main_path", **run)
             runs.append(run)
-        digest = hashlib.sha256(want_bytes).hexdigest()
-        digests[f"k{k}{''.join(extra)}"] = digest
         say("main_path_identical", k=k, args=extra, runs=len(order),
-            bytes=len(want_bytes), sha256=digest)
+            bytes=len(want_bytes),
+            sha256=hashlib.sha256(want_bytes).hexdigest())
     if sort_rows_cuda.launches:
         raise AssertionError("the dense path launched the row sort")
     return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
-            runs, digests)
+            runs)
 
 
 def phase_oracle(tmp: str) -> None:
@@ -1568,7 +1622,7 @@ def phase_oracle(tmp: str) -> None:
         runs=[[k] + extra for k, extra in ORACLE_RUNS])
 
 
-def write_records(path: str, seed: int, n: int = 2000) -> int:
+def write_records(path: str, seed: int, n: int) -> int:
     """A seeded FASTA of n records of 100-5000 bases: uniform ACGT with
     ~5% lowercase, an N run of 1-300 bases in about a third of them.
     -> bases written."""
@@ -1606,7 +1660,7 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
         lines=out.getvalue().strip().splitlines())
 
     records = os.path.join(tmp, "records.fa")
-    bases = write_records(records, seed + 7)
+    bases = write_records(records, seed + 7, PER_RECORD_RECORDS)
     for k, extra in PER_RECORD_RUNS:
         got = {}
         for dev in ("cuda", "cpu"):
@@ -1622,7 +1676,8 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
                 records_per_s=stats["records"] / wall,
                 k2_launches=fused_window_histogram_cuda.launches - k2,
                 out_bytes=len(got[dev]))
-        if got["cuda"] != got["cpu"] or got["cuda"].count(b">") != 2000:
+        if (got["cuda"] != got["cpu"]
+                or got["cuda"].count(b">") != PER_RECORD_RECORDS):
             raise AssertionError(
                 f"--per-record k={k} {extra}: the card's output differs "
                 "from the CPU's")
@@ -1652,11 +1707,12 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
 
 FILTER_REF_BASES = 8 << 20     # a pair of bacterial genomes
 FILTER_READS = 1_000_000       # 150 bp FASTQ reads: 150 Mbase
-FILTER_PAIRS = 250_000
+# the pair and FASTA runs at the depth that leaves phase 13 its time
+FILTER_PAIRS = 100_000
 FILTER_SUBSET = 50_000         # the k = 15 and k = 31 runs
 # the FASTA runs: the list flow parses and emits in Python per read, so
 # 1 M reads would add ~40 s to the smoke and nothing to the check
-FASTA_READS = 200_000
+FASTA_READS = 50_000
 READ_LEN = 150
 FRAGMENT = 400                 # a pair's insert: R2 is its far end, revcomp
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -1949,6 +2005,327 @@ def phase_filter(tmp: str, seed: int) -> dict:
     return launched
 
 
+# phase 13: a small isolate collection (the Mash `sketch`/`dist` and
+# kmtricks matrix workload): 8 samples of one 4 Mbase ancestor, each with
+# its own share of substitutions.  4,000,000 bases, not 4 MiB: a sample's
+# distinct canonical 21-mers must stay under the 2^22 store of `sketch -k`
+# (`api.count`, whose capacity is not sized from its input)
+COHORT_BASES = 4_000_000
+COHORT_RATES = tuple(float(r) for r in np.linspace(0.005, 0.05, 8))
+COHORT_K = ["-k", "21", "--canonical"]
+SKETCH_S = "1000"
+# the host tools of phase 13 that stream in Python, in worker processes
+# beside the in-process `matrix -k` (each is one Python thread; the card
+# is not theirs)
+_TOOL_WORKER = """
+import contextlib, json, sys, time
+from findkmer_torch.cli import main
+done = []
+for name, argv, stdout in json.loads(sys.argv[1]):
+    with open(stdout, "w") as f, contextlib.redirect_stdout(f):
+        t0 = time.perf_counter()
+        rc = main(argv)
+        seconds = time.perf_counter() - t0
+    done.append({"tool": name, "rc": rc, "seconds": seconds})
+print(json.dumps(done))
+"""
+
+
+def write_cohort(tmp: str, seed: int) -> list:
+    """The phase-13 cohort: one seeded ancestor of COHORT_BASES uniform
+    bases, and for each rate of COHORT_RATES a sample with that share of
+    its bases substituted, plus four N gaps of 100-50000 bases as
+    `write_genome` makes them; one record a sample.  -> the FASTA paths."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ancestor = rng.integers(0, 4, COHORT_BASES, dtype=np.uint8)
+    paths = []
+    for i, rate in enumerate(COHORT_RATES):
+        codes = ancestor.copy()
+        hit = np.flatnonzero(rng.random(COHORT_BASES) < rate)
+        codes[hit] = (codes[hit] + rng.integers(1, 4, hit.size,
+                                                dtype=np.uint8)) % 4
+        seq = acgt[codes]
+        for _ in range(4):
+            ln = int(rng.integers(100, 50000))
+            s0 = int(rng.integers(0, COHORT_BASES - ln))
+            seq[s0 : s0 + ln] = ord("N")
+        paths.append(os.path.join(tmp, f"isolate{i + 1}.fa"))
+        with open(paths[-1], "wb") as f:
+            _write_record(f, f"isolate{i + 1} substitutions {rate:.4f}", seq)
+    return paths
+
+
+def _lines(path: str) -> int:
+    n = 0
+    with open(path, "rb") as f:
+        while block := f.read(1 << 24):
+            n += block.count(b"\n")
+    return n
+
+
+def _start_tools(d: str, jobs: list) -> subprocess.Popen:
+    """A worker process that runs `jobs` ((name, argv, stdout file)) in
+    turn through `findkmer_torch.cli.main` and prints their exit codes and
+    seconds as one JSON list."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.Popen(
+        [sys.executable, "-c", _TOOL_WORKER, json.dumps(jobs)], env=env,
+        cwd=d, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_tools(procs: list) -> dict:
+    """Wait for the workers -> {tool: {"rc", "seconds"}}; a worker that
+    fails fails the phase."""
+    done = {}
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"a host-tool worker exited {proc.returncode}: "
+                    f"{err[-2000:]}")
+            for r in json.loads(out.strip().splitlines()[-1]):
+                done[r.pop("tool")] = r
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
+def phase_tools(tmp: str, seed: int) -> dict:
+    """The spectrum tools over a cohort (phase 13 of the module
+    docstring).  -> {kernel: its launches in the phase's runs on the
+    card}, the counts set to 0 just before the first and read just after
+    the last."""
+    from findkmer_torch import spectra
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "tools")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    samples = write_cohort(d, seed + 13)
+    bases = COHORT_BASES * len(samples)
+    say("tools_cohort", samples=len(samples), bases=bases,
+        rates=COHORT_RATES, seconds=time.perf_counter() - t0)
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in samples]
+    spec_dir, sk_dir = os.path.join(d, "spectra"), os.path.join(d, "sk")
+    per = [os.path.join(spec_dir, f"{s}.tsv") for s in stems]
+    o = {name: os.path.join(d, name) for name in (
+        "matrix_k.tsv", "matrix.tsv", "merge_all.tsv", "count_all.tsv",
+        "histo_k21.tsv", "histo_k8.tsv", "histo_spec21.tsv",
+        "histo_spec8.tsv", "count_k8.tsv", "plain_k21.tsv", "canonized.tsv",
+        "merge12.tsv", "intersect12.tsv", "counters12.tsv", "kmers12.tsv",
+        "expr_sum.tsv", "expr_min.tsv", "expr_counters.tsv",
+        "expr_kmers.tsv", "sorted1.tsv", "skspec")}
+    os.makedirs(o["skspec"])
+    wrappers = {"histogram_cuda": histogram_cuda,
+                "fused_window_histogram_cuda": fused_window_histogram_cuda,
+                "sort_rows_cuda": sort_rows_cuda}
+    counting = []
+
+    def on_card(name: str, argv: list, n_bases: int) -> tuple:
+        stats, wall = run_cli(argv + ["--device", "cuda"])
+        run = {"run": name, "bases": n_bases, "wall_s": wall,
+               "bases_per_s": n_bases / wall}
+        say("tools_count", **run)
+        counting.append(run)
+        return stats, wall
+
+    def host(name, argv, inputs):
+        return (name, argv, os.path.join(d, f"{name}.stdout")), inputs
+
+    s1, s2 = per[0], per[1]
+    e12 = ["-i", f"s1={s1}", f"s2={s2}"]
+    for fn in wrappers.values():
+        fn.launches = 0
+    with _RowSortTap() as sorts, \
+            _Tap(cli, "_count_inputs_to_files", lambda *a: {}) as counts_t, \
+            _Tap(spectra, "matrix_sorted_streaming",
+                 lambda *a: {}) as matrix_t:
+        on_card("count_per_input", ["count", "-i", *samples, "--per-input",
+                                    "-o", spec_dir] + COHORT_K, bases)
+        on_card("sketch_per_input", ["sketch", "-i", *samples, "-s",
+                                     SKETCH_S, "--per-input", "-o", sk_dir]
+                + COHORT_K, bases)
+        lines = {p: _lines(p) for p in per}
+        with open(s1, "rb") as f:
+            head = [f.readline().split(b"\t")[0].decode() for _ in range(3)]
+        query = head + ["A" * 21, "acgt" * 5 + "a"]
+        sketches = [os.path.join(sk_dir, f"{s}.sketch.json") for s in stems]
+        # the Python streams in worker processes, three of about a minute
+        # or more each; the C paths (OpenMP over every core) later in
+        # this process, alone
+        jobs = [
+            [host("matrix", ["matrix", "-i", *per, "--min-samples", "2",
+                             "-o", o["matrix.tsv"]], per)],
+            [host("expr_sum", ["expr", "s1 + s2", *e12, "-o",
+                               o["expr_sum.tsv"]], [s1, s2]),
+             host("expr_min", ["expr", "s1 * s2", *e12, "-o",
+                               o["expr_min.tsv"]], [s1, s2]),
+             host("expr_counters", ["expr", "s1 ~ s2", *e12, "-o",
+                                    o["expr_counters.tsv"]], [s1, s2]),
+             host("expr_kmers", ["expr", "s1 - s2", *e12, "-o",
+                                 o["expr_kmers.tsv"]], [s1, s2])],
+            [host("diff", ["diff", "-i", s1, s2, "--limit", "5"], [s1, s2]),
+             host("sort", ["sort", s1, "-o", o["sorted1.tsv"]], [s1]),
+             host("topn", ["topn", s1, "-n", "10"], [s1]),
+             host("query", ["query", s1, *query], [s1])],
+        ]
+        c_jobs = [
+            host("merge12", ["merge", "-i", s1, s2, "-o", o["merge12.tsv"]],
+                 [s1, s2]),
+            host("intersect", ["intersect", "-i", s1, s2, "-o",
+                               o["intersect12.tsv"]], [s1, s2]),
+            host("subtract_counters", ["subtract", "-i", s1, s2, "-o",
+                                       o["counters12.tsv"]], [s1, s2]),
+            host("subtract_kmers", ["subtract", "-i", s1, s2, "--mode",
+                                    "kmers", "-o", o["kmers12.tsv"]],
+                 [s1, s2]),
+            host("info", ["info", s1, "--json"], [s1]),
+            host("histo_spec21", ["histo", "-i", s1, "-k", "21",
+                                  "--from-spectrum", "-o",
+                                  o["histo_spec21.tsv"]], [s1]),
+            host("similarity_spectra", ["similarity", "-i", s1, s2,
+                                        "--json"], [s1, s2]),
+            host("merge_all", ["merge", "-i", *per, "-o", o["merge_all.tsv"]],
+                 per),
+            *[host(f"sketch_spectrum{i + 1}",
+                   ["sketch", "-i", p, "-s", SKETCH_S, "--canonical",
+                    "--name", samples[i], "-o",
+                    os.path.join(o["skspec"], f"{stems[i]}.sketch.json")],
+                   [p]) for i, p in enumerate(per)],
+            host("similarity_sketches", ["similarity", "-i", *sketches],
+                 sketches),
+            host("canonize", ["canonize", o["plain_k21.tsv"], "-o",
+                              o["canonized.tsv"]], [o["plain_k21.tsv"]]),
+            host("histo_spec8", ["histo", "-i", o["count_k8.tsv"], "-k", "8",
+                                 "--from-spectrum", "-o",
+                                 o["histo_spec8.tsv"]], [o["count_k8.tsv"]]),
+        ]
+        inputs = {job[0]: ins for worker in jobs + [c_jobs]
+                  for job, ins in worker}
+        worker_tools = {job[0] for worker in jobs for job, _ in worker}
+        procs = [_start_tools(d, [job for job, _ in worker])
+                 for worker in jobs]
+        try:
+            on_card("histo_k21", ["histo", "-i", samples[0], "-o",
+                                  o["histo_k21.tsv"]] + COHORT_K,
+                    COHORT_BASES)
+            k2_before = fused_window_histogram_cuda.launches
+            on_card("histo_k8", ["histo", "-i", samples[0], "-k", "8", "-o",
+                                 o["histo_k8.tsv"]], COHORT_BASES)
+            on_card("count_k8", ["count", "-i", samples[0], "-k", "8", "-o",
+                                 o["count_k8.tsv"]], COHORT_BASES)
+            k2 = fused_window_histogram_cuda.launches - k2_before
+            on_card("count_plain_k21", ["count", "-i", samples[0], "-k",
+                                        "21", "-o", o["plain_k21.tsv"]],
+                    COHORT_BASES)
+            on_card("count_all", ["count", "-i", *samples, "-o",
+                                  o["count_all.tsv"]] + COHORT_K, bases)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                if cli.main(["stats", "-i", *samples, "-k", "21"]) != 0:
+                    raise AssertionError("stats failed")
+            wall = time.perf_counter() - t0
+            stats = json.loads(out.getvalue())
+            say("tools_stats", bases=stats["bases"], wall_s=wall,
+                bases_per_s=stats["bases"] / wall)
+            _, matrix_wall = on_card(
+                "matrix_k", ["matrix", "-i", *samples, "--min-samples", "2",
+                             "-o", o["matrix_k.tsv"]] + COHORT_K, bases)
+        finally:
+            host_runs = _finish_tools(procs)
+        for (name, argv, stdout), _ in c_jobs:
+            with open(stdout, "w") as f, contextlib.redirect_stdout(f), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                host_runs[name] = {"rc": rc,
+                                   "seconds": time.perf_counter() - t0}
+        launched = {name: fn.launches for name, fn in wrappers.items()}
+        row_sorts = sorts.calls
+    say("tools_matrix_k", wall_s=matrix_wall,
+        count_s=sum(c["seconds"] for c in counts_t.calls),
+        matrix_s=sum(c["seconds"] for c in matrix_t.calls),
+        note="count: the per-sample counts on the card and their spectrum "
+             "files; matrix: the streaming k-way merge over those files")
+    for name, r in host_runs.items():
+        n = sum(lines[p] if p in lines else _lines(p) for p in inputs[name])
+        say("tools_host", tool=name, rc=r["rc"], seconds=r["seconds"],
+            input_lines=n, lines_per_s=n / r["seconds"],
+            where="worker" if name in worker_tools else "alone")
+    want_rc = {"diff": 1}
+    bad = {n: r["rc"] for n, r in host_runs.items()
+           if r["rc"] != want_rc.get(n, 0)}
+    if bad:
+        raise AssertionError(f"host tools exited {bad}")
+
+    # the checks; each output is hashed, then deleted
+    def sha(path: str) -> str:
+        return _sha256_and_delete(path)[0]
+
+    with open(os.path.join(d, "similarity_sketches.stdout")) as f:
+        rows = f.read().splitlines()
+    with open(os.path.join(d, "info.stdout")) as f:
+        info = json.loads(f.read())
+    with open(os.path.join(d, "query.stdout")) as f:
+        answered = f.read().splitlines()
+    with open(os.path.join(d, "diff.stdout")) as f:
+        diff_lines = f.read().splitlines()
+    s1_sha = _sha256(s1)
+    checks = {
+        "matrix_k == matrix over count --per-input":
+            sha(o["matrix_k.tsv"]) == sha(o["matrix.tsv"]),
+        "sketch -k == sketch of each spectrum": all(
+            _read_and_delete(a) == _read_and_delete(os.path.join(
+                o["skspec"], os.path.basename(a))) for a in sketches),
+        "similarity over the sketches: 28 pairs": len(rows) == 29,
+        "histo -k 21 == histo --from-spectrum":
+            sha(o["histo_k21.tsv"]) == sha(o["histo_spec21.tsv"]),
+        "histo -k 8 == histo --from-spectrum of count -k 8":
+            sha(o["histo_k8.tsv"]) == sha(o["histo_spec8.tsv"]),
+        "merge of the samples' spectra == count of the samples":
+            sha(o["merge_all.tsv"]) == sha(o["count_all.tsv"]),
+        "canonize of count -k 21 == count --canonical":
+            sha(o["canonized.tsv"]) == s1_sha,
+        "sort of a sorted spectrum == itself":
+            sha(o["sorted1.tsv"]) == s1_sha,
+        "expr s1 + s2 == merge":
+            sha(o["expr_sum.tsv"]) == sha(o["merge12.tsv"]),
+        "expr s1 * s2 == intersect":
+            sha(o["expr_min.tsv"]) == sha(o["intersect12.tsv"]),
+        "expr s1 ~ s2 == subtract --mode counters":
+            sha(o["expr_counters.tsv"]) == sha(o["counters12.tsv"]),
+        "expr s1 - s2 == subtract --mode kmers":
+            sha(o["expr_kmers.tsv"]) == sha(o["kmers12.tsv"]),
+        "info: sorted canonical k=21, distinct == lines": (
+            info["k"] == 21 and info["sorted"] == "yes"
+            and info["canonical"] == "yes"
+            and info["distinct"] == lines[s1]),
+        "query answers each k-mer": len(answered) == len(query) and all(
+            int(a.split("\t")[1]) > 0 for a in answered[:3]),
+        "diff of two samples exits 1": bool(diff_lines),
+        "every row sort a K3 launch, K1 none, K2 on the k=8 runs": (
+            row_sorts > 0 and launched["sort_rows_cuda"] == row_sorts
+            and launched["histogram_cuda"] == 0 and k2 >= 2
+            and launched["fused_window_histogram_cuda"] == k2),
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    say("tools_checks", passed=len(checks) - len(failed), failed=failed,
+        launches=launched, row_sorts=row_sorts,
+        similarity_sketches=rows[:3], info=info)
+    if failed:
+        raise AssertionError(f"tools phase: {failed}")
+    shutil.rmtree(d)
+    say("tools_launches", **launched, counting_runs=len(counting),
+        host_tools=len(host_runs), seconds=time.perf_counter() - t_phase)
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1956,12 +2333,12 @@ def main() -> int:
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
     ap.add_argument("--only", choices=["rowsort", "window", "stream",
-                                       "filter"],
+                                       "filter", "tools"],
                     help="run only the row sort's phases (K3), only the "
                          "histogram kernels' (K1 and K2), only the "
-                         "restartable stream's, or only read filtering's, "
-                         "and stop: no summary, no ok-line; the quick "
-                         "check of an edit")
+                         "restartable stream's, only read filtering's, or "
+                         "only the spectrum tools', and stop: no summary, "
+                         "no ok-line; the quick check of an edit")
     args = ap.parse_args()
 
     smi = phase_environment()
@@ -1974,11 +2351,15 @@ def main() -> int:
         return 0
     if args.only == "stream":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            phase_stream(tmp, phase_genome(tmp, args.seed), {})
+            phase_stream(tmp, args.seed)
         return 0
     if args.only == "filter":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_filter(tmp, args.seed)
+        return 0
+    if args.only == "tools":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_tools(tmp, args.seed)
         return 0
     if args.only == "window":
         phase_ptxas("histogram.cu")
@@ -1996,19 +2377,16 @@ def main() -> int:
     sort_timing = phase_rowsort_timing(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fasta = phase_genome(tmp, args.seed)
-        launches, k2_launches, runs, dense_sha = phase_main_path(
-            fasta, tmp, args.profile)
+        launches, k2_launches, runs = phase_main_path(fasta, tmp,
+                                                      args.profile)
         sort_launches, sparse_runs = phase_sparse_main_path(tmp, fasta)
         phase_sparse_device_step(fasta)
-        phase_oracle(tmp)
-        counted = next(r for r in sparse_runs if r["row_sort"] == "auto"
-                       and [str(r["k"])] + r["args"] == STREAM_SPARSE[1:])
-        stream_launches = phase_stream(tmp, fasta, {
-            "dense": dense_sha["k8"], "sparse": counted["sha256"],
-            "sparse_phases": counted["phases"]})
         os.unlink(fasta)
+        phase_oracle(tmp)
+        stream_launches = phase_stream(tmp, args.seed)
         phase_entry_points(tmp, args.seed)
         filter_launches = phase_filter(tmp, args.seed)
+        tools_launches = phase_tools(tmp, args.seed)
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
@@ -2020,9 +2398,10 @@ def main() -> int:
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
     def launches_of(name: str, count: int) -> dict:
-        """The `count` paths' launches, each stream-phase run's own and
-        the filter runs' (none)."""
-        by_run = {**stream_launches[name], "filter": filter_launches[name]}
+        """The `count` paths' launches, each stream-phase run's own, the
+        filter runs' (none) and the spectrum tools' (K2 and K3)."""
+        by_run = {**stream_launches[name], "filter": filter_launches[name],
+                  "tools": tools_launches[name]}
         return {"launches": count + sum(by_run.values()),
                 "launches_by_path": {"count": count, **by_run}}
 

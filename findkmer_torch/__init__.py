@@ -14,8 +14,12 @@ above): `count` (one combined spectrum, `--per-input`, `--per-record`),
 `stream` (the restartable count: `--checkpoint`, exact resume), the disk
 spill of both (`--spill`), `filter` (read filtering by spectrum
 membership, single-end and paired, by the host C scan or on the device),
-`selftest`, and the library API `count` / `count_per_record` /
-`count_text` / `filter_reads` / `stream_count` (`api.py`):
+`selftest`, the spectrum tools (`merge`, `matrix`, `expr`,
+`intersect`, `subtract`, `sort`, `canonize`, `query`, `topn`, `histo`,
+`info`, `similarity`, `sketch`, `diff`, `stats`; `matrix -k`, `sketch -k`
+and `histo` count on the device first), and the library API `count` /
+`count_per_record` / `count_text` / `sketch_sample` / `filter_reads` /
+`matrix` / `expr` / `similarity` / `stream_count` (`api.py`):
 
     python -m findkmer_torch.cli count -i in.fa -k 21 --canonical -o out.tsv
     python -m findkmer_torch.cli stream -i in.fa -k 21 -o out.tsv --checkpoint ck
@@ -37,8 +41,12 @@ from findkmer_torch.config import Config
 
 def __getattr__(name):
     # lazy: the API imports torch
+    # NOTE: no lazy export may share a name with a submodule (e.g.
+    # "sketch"): once the submodule is imported it becomes the package
+    # attribute and would shadow the function; hence sketch_sample
     if name in ("count", "count_per_record", "count_text", "filter_reads",
-                "stream_count", "Spectrum"):
+                "stream_count", "Spectrum", "sketch_sample", "similarity",
+                "matrix", "expr"):
         from findkmer_torch import api
 
         return getattr(api, name)
@@ -46,4 +54,5 @@ def __getattr__(name):
 
 
 __all__ = ["Config", "count", "count_per_record", "count_text",
-           "filter_reads", "stream_count", "Spectrum"]
+           "filter_reads", "stream_count", "Spectrum", "sketch_sample",
+           "similarity", "matrix", "expr"]

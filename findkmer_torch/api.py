@@ -1,6 +1,8 @@
 """Public Python API of the port: `count`, `count_per_record`, `count_text`,
-`filter_reads` (read filtering, `filter.py`) and `stream_count` (the
-restartable count of `streaming.py`, re-exported).
+`sketch_sample` (`sketch.py`), `filter_reads` (read filtering,
+`filter.py`), `matrix`, `expr`, `similarity` (the spectrum tools of
+`spectra.py`) and `stream_count` (the restartable count of
+`streaming.py`, re-exported).
 
 Counterpart of the same functions of `findkmer_tpu/api.py`, with the
 torch device named explicitly (`device="cuda"` or `"cpu"`, or a
@@ -16,6 +18,10 @@ torch device named explicitly (`device="cuda"` or `"cpu"`, or a
     fkt.stream_count(["genome.fa"], fkt.Config(k=21), device="cuda",
                      checkpoint_dir="ck", checkpoint_every=64)
     fkt.filter_reads("reads.fq", "spec.tsv", "kept.fq", engine="device")
+    sk = fkt.sketch_sample(["a.fa"], k=21, canonical=True, device="cuda")
+    fkt.similarity(sk, "b.sketch.json")        # Mash estimate
+    fkt.matrix(["a.tsv", "b.tsv"], "m.tsv", min_samples=2)
+    fkt.expr("(A + B) - C", {"A": "a.tsv", "B": "b.tsv", "C": "c.tsv"})
 
 `Spectrum` is the port's own copy of the JAX package's class, with the
 same methods; its lookups use the port's window helpers.
@@ -206,6 +212,35 @@ def count_text(text: str, k: int, *,
     return Spectrum.from_engine(counter.finalize(state), cfg)
 
 
+def sketch_sample(
+    inputs: Union[str, Sequence[str]],
+    k: Optional[int] = None,
+    *,
+    s: int = 1000,
+    canonical: bool = False,
+    device: Union[str, torch.device] = "cuda",
+    **config_overrides,
+):
+    """Bottom-s MinHash sketch (dict, sketch.SKETCH_FORMAT).
+
+    With k: sequence input(s), counted as ONE sample like count(), on
+    `device` (cuda without a card raises).  Without k: `inputs` is one
+    spectrum file path (k inferred; no device work).
+    CLI equivalent: `findkmer-torch sketch`."""
+    from findkmer_torch import sketch as sketch_mod
+
+    if k is not None:
+        if isinstance(inputs, (str, bytes)):
+            inputs = [inputs]
+        return sketch_mod.sketch_sequences(
+            inputs, k, s=s, canonical=canonical, device=device,
+            **config_overrides
+        )
+    if not isinstance(inputs, (str, bytes)):
+        raise ValueError("without k, pass one spectrum file path")
+    return sketch_mod.sketch_spectrum_file(inputs, s=s, canonical=canonical)
+
+
 def filter_reads(
     inputs: Union[str, Sequence[str]],
     spectrum: str,
@@ -256,6 +291,121 @@ def filter_reads(
     if isinstance(inputs, (str, bytes)):
         inputs = [inputs]
     return filter_into(inputs, [output], spec, **opts)
+
+
+def matrix(
+    inputs: Sequence[str],
+    output: str,
+    *,
+    names: Optional[Sequence[str]] = None,
+    min_total: int = 0,
+    min_samples: int = 0,
+    sep: str = "\t",
+) -> int:
+    """k-mer x sample count matrix from sorted spectrum files.
+    CLI: `findkmer-torch matrix`.  Returns data rows written."""
+    from findkmer_torch import spectra
+    from findkmer_torch.cli import _input_stems, _open_out
+
+    inputs = list(inputs)
+    use_names = list(names) if names is not None else _input_stems(inputs)
+    if len(use_names) != len(inputs):
+        # validate BEFORE _open_out truncates an existing output
+        raise ValueError(
+            f"matrix needs one name per input ({len(inputs)} inputs, "
+            f"{len(use_names)} names)"
+        )
+    f, close = _open_out(output)
+    try:
+        return spectra.matrix_sorted_streaming(
+            inputs, f, use_names, sep=sep,
+            min_total=min_total, min_samples=min_samples,
+        )
+    finally:
+        if close:
+            f.close()
+
+
+def expr(
+    expression: str,
+    inputs: Dict[str, str],
+    output: Optional[str] = None,
+    *,
+    canonical: bool = False,
+    sep: str = "\t",
+):
+    """Set-algebra expression over sorted spectrum files.
+    CLI: `findkmer-torch expr`.
+
+    With output=None returns {kmer: count}; with an output path writes
+    KMER<sep>COUNT lines (streaming, O(buffers)) and returns the line
+    count."""
+    from findkmer_torch import spectra
+
+    if output is None:
+        if canonical:
+            names = sorted(inputs)
+            with spectra._CanonizedInputs(
+                [inputs[n] for n in names], sep
+            ) as folded:
+                return {
+                    km.decode(): c
+                    for km, c in spectra.eval_expression(
+                        expression, dict(zip(names, folded)), sep
+                    )
+                }
+        return {
+            km.decode(): c
+            for km, c in spectra.eval_expression(expression, inputs, sep)
+        }
+    from findkmer_torch.cli import _open_out
+
+    f, close = _open_out(output)
+    try:
+        return spectra.expr_sorted_streaming(
+            expression, inputs, f, sep=sep, canonical=canonical
+        )
+    finally:
+        if close:
+            f.close()
+
+
+def similarity(a, b, *, canonical: bool = False, sep: str = "\t"):
+    """Similarity metrics between two spectrum files, or two sketch
+    dicts/files (Mash estimator).  CLI: `findkmer-torch similarity`."""
+    from findkmer_torch import sketch as sketch_mod
+    from findkmer_torch import spectra
+
+    def _as_sketch(x):
+        if isinstance(x, dict):
+            return x
+        return sketch_mod.read_sketch(x)
+
+    a_sk = isinstance(a, dict) or (
+        isinstance(a, (str, bytes)) and sketch_mod.is_sketch_file(a)
+    )
+    b_sk = isinstance(b, dict) or (
+        isinstance(b, (str, bytes)) and sketch_mod.is_sketch_file(b)
+    )
+    if a_sk or b_sk:
+        ref = _as_sketch(a if a_sk else b)
+        if canonical and not bool(ref["canonical"]):
+            # folding only the spectrum side would always fail
+            # compare_sketches' mismatch guard AFTER the (potentially
+            # long) sketch work — reject up front, like the CLI does
+            raise ValueError(
+                "canonical=True cannot apply to a non-canonical "
+                f"sketch ({ref.get('name', '?')}); re-sketch it "
+                "canonically or drop the flag"
+            )
+        sa = _as_sketch(a) if a_sk else sketch_mod.sketch_spectrum_file(
+            a, s=int(ref["s"]), sep=sep,
+            canonical=bool(ref["canonical"]) or canonical)
+        sb = _as_sketch(b) if b_sk else sketch_mod.sketch_spectrum_file(
+            b, s=int(ref["s"]), sep=sep,
+            canonical=bool(ref["canonical"]) or canonical)
+        return sketch_mod.compare_sketches(sa, sb)
+    return spectra.similarity_spectra(a, b, sep=sep, canonical=canonical)
 
 
 def stream_count(paths, cfg: Config, **kw):

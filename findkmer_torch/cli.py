@@ -1,5 +1,4 @@
-"""findkmer-torch CLI: the `count`, `stream`, `filter` and `selftest`
-subcommands of the port.
+"""findkmer-torch CLI: the port's subcommands.
 
     python -m findkmer_torch.cli count -i in.fa -k 21 -o out.tsv [--device cuda]
     python -m findkmer_torch.cli count -i a.fa b.fa -k 8 --per-input -o DIR
@@ -13,22 +12,34 @@ subcommands of the port.
         --spectrum spec.tsv -o kept1.fq,kept2.fq
     python -m findkmer_torch.cli selftest [--device cuda] [--seed N]
 
+Counted on --device (cuda by default) before their host work:
+    python -m findkmer_torch.cli matrix -i a.fa b.fa -k 21 --canonical -o m.tsv
+    python -m findkmer_torch.cli sketch -i a.fa b.fa -k 21 --per-input -o DIR
+    python -m findkmer_torch.cli histo -i in.fa -k 21 [--from-spectrum]
+
+Host only, over spectrum (or sketch) files, no --device:
+    stats (the host batcher alone), merge, matrix (without -k), expr,
+    intersect, subtract, sort, canonize, query, topn, info, similarity,
+    sketch (without -k), diff (exit 1 when the spectra differ)
+
 Same arguments (flags, defaults, help texts, exit codes) and the same
-output bytes as `findkmer count`, `findkmer stream` and `findkmer filter`
-of the JAX package (whose checkpoints and spill runs the port reads, and
-the other way round): `_add_common`,
-`_cfg_from_args` with its sparse autosize, `_open_out` and the
---per-input file names `_per_input_name` are the port's own copies of
-that CLI's helpers, and the spectrum is written by `findkmer_torch.output`
-(`write_spectrum` and, for sparse tables, `write_spectrum_streaming` over
-the counter's chunked finalize).  Any k up to 31 counts.  `--device` picks the torch device; asking for cuda without
-one is an error, never a CPU run.  One exit code differs: `filter` refuses
+output bytes as the same subcommands of the JAX package's `findkmer`
+(whose checkpoints, spill runs and sketches the port reads, and the other
+way round): `_add_common`, `_cfg_from_args` with its sparse autosize,
+`_open_out`, the input stems of --per-input and `matrix`, and the
+commands themselves are the port's own copies of that CLI's, over the
+port's `spectra.py` and `sketch.py`; the spectrum is written by
+`findkmer_torch.output` (`write_spectrum` and, for sparse tables,
+`write_spectrum_streaming` over the counter's chunked finalize).  Any k
+up to 31 counts; the spectrum tools also take files of longer k-mers.
+`--device` picks the torch device; asking for cuda without one is an
+error (exit 2), never a CPU run.  One exit code differs: `filter` refuses
 SAM/BAM input with exit 2 (trouble), where the JAX CLI exits 1 (its
-"nothing kept").
+"nothing kept").  `bench` is not ported.
 
 Not yet ported, each refused with one error line and exit 2: `--devices`
-other than 1, `--profile`, and `stream --coordinator` with more than one
-process.
+other than 1 and `--profile` (`count`, `stream`, `histo`), and `stream
+--coordinator` with more than one process.
 """
 
 from __future__ import annotations
@@ -301,10 +312,26 @@ def _timed_chunks(chunks, timers):
             yield chunk
 
 
+def _count_inputs_to_files(inputs, out_paths, cfg, device, stats=None,
+                           row_sort: str = "auto",
+                           dense_kernel: str = "fused") -> None:
+    """Count each input on its own on `device` into its spectrum file
+    (count --per-input and matrix -k share this loop); row_sort and
+    dense_kernel pick the counter's kernels, as in `cmd_count`."""
+    from findkmer_torch import output as output_mod
+    from findkmer_torch import pipeline
+
+    for path, out in zip(inputs, out_paths):
+        spectrum = pipeline.count_file(path, cfg, device, stats=stats,
+                                       row_sort=row_sort,
+                                       dense_kernel=dense_kernel)
+        with open(out, "wb") as f:
+            output_mod.write_spectrum(f, spectrum, cfg)
+
+
 def _count_per_input(args, cfg, device, kernels: dict) -> int:
     """--per-input: one spectrum file per input, written into -o DIR
     (files named <input stem>.tsv, a repeated stem as <stem>.2.tsv)."""
-    from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
 
     if args.output == "-" or (
@@ -317,11 +344,8 @@ def _count_per_input(args, cfg, device, kernels: dict) -> int:
     seen: dict = {}
     outs = [os.path.join(args.output, _per_input_name(p, seen))
             for p in args.input]
-    for path, out in zip(args.input, outs):
-        spectrum = pipeline.count_file(path, cfg, device, stats=stats,
-                                       **kernels)
-        with open(out, "wb") as f:
-            output_mod.write_spectrum(f, spectrum, cfg)
+    _count_inputs_to_files(args.input, outs, cfg, device, stats=stats,
+                           **kernels)
     if args.stats == "json":
         print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
@@ -497,6 +521,472 @@ def filter_into(inputs, outputs, spec, *, paired: bool = False,
                 f.close()
 
 
+def cmd_stats(args, **_kernels) -> int:
+    from findkmer_torch import pipeline
+
+    cfg = _cfg_from_args(args)
+    stats = pipeline.StreamStats()
+    for path in args.input:
+        for _ in pipeline.batches_from_file(path, cfg, stats=stats):
+            pass
+    print(json.dumps(stats.as_dict()))
+    return 0
+
+
+def cmd_merge(args, **_kernels) -> int:
+    from findkmer_torch import spectra
+
+    if args.zeros and args.k <= 0:
+        raise ValueError("merge -z needs -k to enumerate all 4^k k-mers")
+    if args.canonical and not args.zeros:
+        raise ValueError(
+            "merge --canonical only affects -z interleaving (a plain "
+            "merge of canonical spectra needs no flag)"
+        )
+    zk = args.k if args.zeros else None
+    f, close = _open_out(args.output)
+    try:
+        if args.in_memory:
+            counts = spectra.merge_spectra(args.input, sep=args.sep,
+                                           op=args.op)
+            for line in spectra.spectrum_lines(counts, sep=args.sep,
+                                               zeros_k=zk,
+                                               canonical=args.canonical):
+                f.write(line.encode() + b"\n")
+        elif zk is None and args.op == "sum" and spectra.merge_binary_fast(
+            args.input, f, sep=args.sep
+        ):
+            pass  # C fast path: parse + parallel heap merge + format
+        else:
+            # streaming k-way merge: O(MB) memory at chr scale (our
+            # spectrum writers always emit sorted files)
+            spectra.merge_sorted_streaming(args.input, f, sep=args.sep,
+                                           zeros_k=zk,
+                                           canonical=args.canonical,
+                                           op=args.op)
+    finally:
+        if close:
+            f.close()
+    return 0
+
+
+def _input_stems(paths) -> list:
+    """Column names for matrix: the --per-input stem convention plus
+    spectrum/alignment extensions."""
+    seen: dict = {}
+    exts = _SEQ_EXTS + (".tsv", ".sam", ".bam")
+    return [_input_stem(p, seen, exts) for p in paths]
+
+
+def cmd_matrix(args, **kernels) -> int:
+    """k-mer x sample count matrix (kmtricks-class aggregation).  With -k
+    each input is counted on --device into a temporary spectrum first."""
+    import shutil
+    import tempfile
+
+    from findkmer_torch import spectra
+
+    inputs = list(args.input)
+    if args.names:
+        names = args.names.split(",")
+    else:
+        names = _input_stems(inputs)
+    if len(names) != len(inputs):
+        # validate BEFORE _open_out truncates an existing output
+        raise ValueError(
+            f"matrix needs one name per input ({len(inputs)} "
+            f"inputs, {len(names)} names)"
+        )
+    tmpdir = None
+    try:
+        if args.k > 0:
+            # sequence inputs: count each at k into a temp spectrum
+            # (one sample per input, like count --per-input), then
+            # stream the matrix over the temp files
+            from findkmer_torch.device import resolve_device
+
+            device = resolve_device(args.device)
+            cfg = _autosize_sparse(
+                Config(k=args.k, canonical=args.canonical,
+                       sep=args.sep),
+                inputs, user_set_capacity=False,
+            )
+            tmpdir = tempfile.mkdtemp(prefix="fk-matrix-")
+            counted = [os.path.join(tmpdir, f"s{i:05d}.tsv")
+                       for i in range(len(inputs))]
+            _count_inputs_to_files(inputs, counted, cfg, device, **kernels)
+            inputs = counted
+        elif args.canonical:
+            raise ValueError(
+                "matrix --canonical needs -k (sequence inputs); "
+                "canonize spectrum files first"
+            )
+        f, close = _open_out(args.output)
+        try:
+            rows = spectra.matrix_sorted_streaming(
+                inputs, f, names, sep=args.sep,
+                min_total=args.min_total, min_samples=args.min_samples,
+            )
+        finally:
+            if close:
+                f.close()
+    finally:
+        if tmpdir:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+    print(f"{rows} k-mers x {len(names)} samples", file=sys.stderr)
+    return 0
+
+
+def cmd_expr(args, **_kernels) -> int:
+    """Set-algebra expression over spectra (kmc_tools `complex`)."""
+    from findkmer_torch import spectra
+
+    inputs = {}
+    for spec in args.input:
+        name, eq, path = spec.partition("=")
+        if not eq or not name or not path:
+            raise ValueError(
+                f"expr inputs are NAME=PATH, got {spec!r}"
+            )
+        if name in inputs:
+            raise ValueError(f"duplicate expr input name {name!r}")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"input file not found: {path}")
+        inputs[name] = path
+    # parse errors surface BEFORE the output is created/truncated
+    spectra.eval_expression(args.expression, inputs, sep=args.sep)
+    f, close = _open_out(args.output)
+    try:
+        n = spectra.expr_sorted_streaming(
+            args.expression, inputs, f, sep=args.sep,
+            canonical=args.canonical,
+        )
+    finally:
+        if close:
+            f.close()
+    print(f"{n} k-mers", file=sys.stderr)
+    return 0
+
+
+def cmd_setop(args, **_kernels) -> int:
+    """intersect / subtract (kmc_tools-style streaming set ops)."""
+    from findkmer_torch import spectra
+
+    f, close = _open_out(args.output)
+    try:
+        if args.cmd == "intersect":
+            spectra.intersect_sorted_streaming(args.input, f, sep=args.sep,
+                                               canonical=args.canonical)
+        else:
+            spectra.subtract_sorted_streaming(args.input, f, sep=args.sep,
+                                              canonical=args.canonical,
+                                              mode=args.mode)
+    finally:
+        if close:
+            f.close()
+    return 0
+
+
+def cmd_sort(args, **_kernels) -> int:
+    """Normalize a spectrum file: lexicographic order, case-folded,
+    duplicate k-mers summed (prep for the streaming set ops)."""
+    from findkmer_torch import spectra
+
+    f, close = _open_out(args.output)
+    try:
+        spectra.sort_spectrum_file(
+            args.input, f, sep=args.sep,
+            min_count=args.min_count, max_count=args.max_count,
+            set_count=args.set_count, kmers_only=args.kmers_only,
+        )
+    finally:
+        if close:
+            f.close()
+    return 0
+
+
+def cmd_canonize(args, **_kernels) -> int:
+    """Fold a plain spectrum to canonical (revcomp-min) form."""
+    from findkmer_torch import spectra
+
+    f, close = _open_out(args.output)
+    try:
+        spectra.canonize_spectrum_file(args.input, f, sep=args.sep)
+    finally:
+        if close:
+            f.close()
+    return 0
+
+
+def cmd_query(args, **_kernels) -> int:
+    from findkmer_torch import spectra
+
+    kmers = list(args.kmers)
+    if args.kmers_file:
+        f = (sys.stdin if args.kmers_file == "-"
+             else open(args.kmers_file))
+        try:
+            kmers.extend(w for line in f for w in line.split())
+        finally:
+            if f is not sys.stdin:
+                f.close()
+    if not kmers:
+        raise ValueError("no k-mers given (positional or --kmers-file)")
+    counts = spectra.query_spectrum(args.spectrum, kmers,
+                                    sep=args.sep,
+                                    canonical=args.canonical)
+    for kmer in kmers:
+        print(f"{kmer.upper()}{args.sep}{counts[kmer.upper()]}")
+    return 0
+
+
+def cmd_topn(args, **_kernels) -> int:
+    from findkmer_torch import spectra
+
+    for kmer, cnt in spectra.top_n(args.spectrum, args.n, sep=args.sep):
+        print(f"{kmer}{args.sep}{cnt}")
+    return 0
+
+
+def _emit_kv(d, as_json: bool) -> None:
+    if as_json:
+        print(json.dumps(d))
+        return
+    for key, val in d.items():
+        if isinstance(val, float):
+            val = f"{val:.6g}"
+        print(f"{key}\t{val}")
+
+
+def cmd_info(args, **_kernels) -> int:
+    """Summary statistics of a spectrum file (kmc_tools info analog),
+    or of a sketch file (format/name/k/s/canonical/n_hashes)."""
+    from findkmer_torch import sketch as sketch_mod
+    from findkmer_torch import spectra
+
+    if sketch_mod.is_sketch_file(args.input):
+        sk = sketch_mod.read_sketch(args.input)
+        _emit_kv({key: sk[key] for key in
+                  ("format", "name", "k", "s", "canonical", "n_hashes")},
+                 args.json)
+        return 0
+    _emit_kv(spectra.info_spectrum_file(args.input, sep=args.sep),
+             args.json)
+    return 0
+
+
+def _compare_pair(path_a, path_b, args):
+    """One similarity comparison, sketch-aware.  A mixed pair sketches
+    the spectrum side on the fly with the sketch's own k/s/canonical so
+    the estimate is well-defined."""
+    from findkmer_torch import sketch as sketch_mod
+    from findkmer_torch import spectra
+
+    pair = [path_a, path_b]
+    is_sk = [sketch_mod.is_sketch_file(p) for p in pair]
+    if not any(is_sk):
+        return spectra.similarity_spectra(
+            path_a, path_b, sep=args.sep, canonical=args.canonical
+        )
+    sks = []
+    ref = next(
+        sketch_mod.read_sketch(p) for p, s in zip(pair, is_sk) if s
+    )
+    if args.canonical and not bool(ref["canonical"]):
+        # folding only the spectrum side would always fail
+        # compare_sketches' canonical-mismatch guard AFTER doing the
+        # sketch work — reject the flag combination up front instead
+        raise ValueError(
+            "--canonical cannot apply to a non-canonical sketch "
+            f"({ref.get('name', '?')}); re-sketch it with --canonical "
+            "or drop the flag"
+        )
+    for path, s in zip(pair, is_sk):
+        if s:
+            sks.append(sketch_mod.read_sketch(path))
+        else:
+            sk = sketch_mod.sketch_spectrum_file(
+                path, s=int(ref["s"]), sep=args.sep,
+                canonical=bool(ref["canonical"]),
+            )
+            sk["name"] = str(path)
+            sks.append(sk)
+    return sketch_mod.compare_sketches(sks[0], sks[1])
+
+
+def cmd_similarity(args, **_kernels) -> int:
+    """Jaccard/containment/cosine/Mash between spectra or sketches.
+
+    Two inputs: full metric report.  Three or more (mash dist class):
+    one row per unordered pair — jaccard, mash_distance, shared."""
+    if len(args.input) < 2:
+        raise ValueError("similarity needs at least two inputs")
+    if len(args.input) == 2:
+        _emit_kv(_compare_pair(args.input[0], args.input[1], args),
+                 args.json)
+        return 0
+    rows = []
+    for i in range(len(args.input)):
+        for j in range(i + 1, len(args.input)):
+            d = _compare_pair(args.input[i], args.input[j], args)
+            d.setdefault("name_a", str(args.input[i]))
+            d.setdefault("name_b", str(args.input[j]))
+            rows.append(d)
+    if args.json:
+        print(json.dumps(rows))
+        return 0
+    print("a\tb\tjaccard\tmash_distance\tshared")
+    for d in rows:
+        print(
+            f"{d['name_a']}\t{d['name_b']}\t{d['jaccard']:.6g}"
+            f"\t{d['mash_distance']:.6g}\t{d['shared']}"
+        )
+    return 0
+
+
+def cmd_sketch(args, **_kernels) -> int:
+    """Write a bottom-s MinHash sketch of a sample (Mash tool class).
+
+    With -k the inputs are sequence files (FASTA/FASTQ/SAM/BAM, one
+    sample like `count`); without -k the single input is a spectrum
+    file whose k is inferred.  --per-input sketches each input as its
+    own sample into <stem>.sketch.json under -o DIR (mash sketch
+    workflow: many samples, then `similarity` on the sketches).  Sequence
+    inputs are counted on --device."""
+    from findkmer_torch import sketch as sketch_mod
+    from findkmer_torch.device import resolve_device
+
+    if args.s < 1:
+        raise ValueError(f"sketch size -s must be >= 1, got {args.s}")
+    # sequence inputs count on --device: a missing card fails here,
+    # before -o DIR is made
+    device = resolve_device(args.device) if args.k > 0 else None
+    if args.per_input:
+        if args.k <= 0:
+            raise ValueError("sketch --per-input requires -k")
+        if args.output in ("", "-"):
+            raise ValueError("sketch --per-input requires -o DIR")
+        os.makedirs(args.output, exist_ok=True)
+        # basename stems collide across directories (run1/s1.fa and
+        # run2/s1.fa); de-collide with .2/.3 suffixes like count
+        # --per-input does, so no sample's sketch is silently overwritten
+        seen: dict = {}
+        for path in args.input:
+            sk = sketch_mod.sketch_sequences(
+                [path], args.k, s=args.s, canonical=args.canonical,
+                device=device,
+            )
+            # the shared --per-input naming convention (_input_stem)
+            stem = _input_stem(
+                path, seen,
+                exts=_SEQ_EXTS + (".sam", ".bam"),
+            )
+            out_path = os.path.join(args.output, stem + ".sketch.json")
+            with open(out_path, "wb") as f:
+                sketch_mod.write_sketch(sk, f)
+                f.write(b"\n")
+            print(f"{out_path}: {sk['n_hashes']} hashes", file=sys.stderr)
+        return 0
+    if args.k > 0:
+        sk = sketch_mod.sketch_sequences(
+            args.input, args.k, s=args.s, canonical=args.canonical,
+            name=args.name or None, device=device,
+        )
+    else:
+        if len(args.input) != 1:
+            raise ValueError(
+                "sketch: without -k, pass exactly one spectrum file "
+                "(use -k K to sketch sequence inputs as one sample)"
+            )
+        sk = sketch_mod.sketch_spectrum_file(
+            args.input[0], s=args.s, sep=args.sep,
+            canonical=args.canonical, name=args.name or None,
+        )
+    out, own = _open_out(args.output)
+    try:
+        sketch_mod.write_sketch(sk, out)
+        out.write(b"\n")
+    finally:
+        if own:
+            out.close()
+    print(
+        f"sketched {sk['n_hashes']} hashes (k={sk['k']}, s={sk['s']}"
+        f"{', canonical' if sk['canonical'] else ''})",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def cmd_diff(args, **_kernels) -> int:
+    """Diff two spectrum files.  Default: the streaming two-pointer
+    walk (O(buffers) memory — chr-scale 2.4 GB spectra never fit the
+    dict path).  --in-memory restores the dict path for unsorted
+    inputs."""
+    from findkmer_torch import spectra
+
+    if args.in_memory:
+        a = spectra.read_spectrum(args.input[0], sep=args.sep)
+        b = spectra.read_spectrum(args.input[1], sep=args.sep)
+        lines = iter(spectra.diff_spectra(a, b))
+    else:
+        lines = spectra.diff_sorted_streaming(
+            args.input[0], args.input[1], sep=args.sep
+        )
+    shown = extra = 0
+    try:
+        for d in lines:
+            if shown < args.limit:
+                print(d)
+                shown += 1
+            else:
+                extra += 1
+    except ValueError as e:
+        if "not sorted" in str(e):
+            raise ValueError(
+                f"{e} — or rerun with `diff --in-memory` "
+                "(loads both spectra into RAM)"
+            ) from e
+        raise
+    if extra:
+        print(f"... and {extra} more")
+    return 1 if (shown or extra) else 0
+
+
+def cmd_histo(args, **_kernels) -> int:
+    """Count-of-counts histogram (KMC `histogram`-style output): of a
+    recount on --device, or of spectrum files (--from-spectrum, host
+    only)."""
+    if args.from_spectrum:
+        # histogram an existing spectrum file — no recount, no device
+        from findkmer_torch import spectra
+
+        h = None
+        for path in args.input:
+            hi = spectra.histo_spectrum_file(
+                path, max_count=args.max_count, sep=args.sep
+            )
+            h = hi if h is None else h + hi
+        sep = args.sep
+    else:
+        from findkmer_torch import api
+
+        cfg = _cfg_from_args(args)
+        _refuse_unported(args, cfg)
+        spec = api.count(args.input, cfg.k, canonical=cfg.canonical,
+                         config=cfg, device=args.device)
+        h = spec.histo(max_count=args.max_count)
+        sep = cfg.sep
+    f, close = _open_out(args.output)
+    try:
+        for m in range(1, h.size):
+            if h[m] or not args.nonzero_only:
+                f.write(f"{m}{sep}{int(h[m])}\n".encode())
+    finally:
+        if close:
+            f.close()
+    return 0
+
+
 def _add_thresholds(p: argparse.ArgumentParser) -> None:
     p.add_argument("--min-count", type=int, default=0, metavar="N",
                    help="suppress output of k-mers with count < N "
@@ -549,6 +1039,233 @@ def build_parser() -> argparse.ArgumentParser:
                          "spectrum")
     _add_device(ps, "count on")
     ps.set_defaults(fn=cmd_stream)
+
+    pt = sub.add_parser("stats", help="stream statistics only (no device)")
+    _add_common(pt)
+    pt.set_defaults(fn=cmd_stats)
+
+    pm = sub.add_parser(
+        "merge", help="merge spectrum TSV files (multi-host tail)"
+    )
+    pm.add_argument("-i", "--input", required=True, nargs="+",
+                    help="spectrum files (KMER<sep>COUNT)")
+    pm.add_argument("-o", "--output", default="-")
+    pm.add_argument("-k", type=int, default=0,
+                    help="k (only needed with -z)")
+    pm.add_argument("-z", "--zeros", action="store_true")
+    pm.add_argument("--canonical", action="store_true",
+                    help="with -z: interleave zeros over the CANONICAL "
+                         "code space (kmers with kmer <= revcomp) — for "
+                         "merging spectra counted with --canonical")
+    pm.add_argument("--op", choices=["sum", "min", "max"], default="sum",
+                    help="counter operation for k-mers present in "
+                         "several inputs (kmc_tools union counter-"
+                         "calculation modes)")
+    pm.add_argument("--sep", default="\t")
+    pm.add_argument("--in-memory", action="store_true",
+                    help="dict-based merge (accepts unsorted inputs; "
+                         "default is a streaming sorted merge in O(MB) "
+                         "memory)")
+    pm.set_defaults(fn=cmd_merge)
+
+    px = sub.add_parser(
+        "matrix",
+        help="k-mer x sample count matrix from spectrum files "
+             "(kmtricks-class multi-sample aggregation)",
+    )
+    px.add_argument("-i", "--input", required=True, nargs="+",
+                    help="sorted spectrum files, one per sample "
+                         "(canonical spectra: canonize every input "
+                         "first) — or sequence files with -k")
+    px.add_argument("-k", type=int, default=0,
+                    help="treat inputs as sequence files "
+                         "(FASTA/FASTQ/SAM/BAM): count each at this k "
+                         "first, one sample per input")
+    px.add_argument("--canonical", action="store_true",
+                    help="with -k: canonical (revcomp-min) counting")
+    px.add_argument("-o", "--output", default="-")
+    px.add_argument("--names", default="",
+                    help="comma-separated column names (default: "
+                         "input basename stems)")
+    px.add_argument("--min-total", type=int, default=0,
+                    help="drop rows whose count sum is below N")
+    px.add_argument("--min-samples", type=int, default=0,
+                    help="drop rows with fewer than N nonzero samples")
+    px.add_argument("--sep", default="\t")
+    _add_device(px, "count on")
+    px.set_defaults(fn=cmd_matrix)
+
+    pe = sub.add_parser(
+        "expr",
+        help="set-algebra expression over spectra (kmc_tools complex)",
+        epilog="operators: A+B union/sum, A*B intersect/min, A-B "
+               "k-mers of A absent from B, A~B counter subtract "
+               "(kept > 0); '*' binds tighter, parentheses group. "
+               "Example: findkmer expr '(A + B) - C' "
+               "-i A=a.tsv B=b.tsv C=c.tsv",
+    )
+    pe.add_argument("expression",
+                    help="e.g. '(A + B) * C' — names defined by -i")
+    pe.add_argument("-i", "--input", required=True, nargs="+",
+                    metavar="NAME=PATH",
+                    help="sorted spectrum files bound to expression "
+                         "names")
+    pe.add_argument("-o", "--output", default="-")
+    pe.add_argument("--canonical", action="store_true",
+                    help="fold every input to revcomp-min form first")
+    pe.add_argument("--sep", default="\t")
+    pe.set_defaults(fn=cmd_expr)
+
+    for op, hlp in (
+        ("intersect", "k-mers in every input, count = min (streaming)"),
+        ("subtract", "first input minus the others, rows <= 0 dropped"),
+    ):
+        po = sub.add_parser(op, help=hlp)
+        po.add_argument("-i", "--input", required=True, nargs="+",
+                        help="sorted spectrum files (KMER<sep>COUNT)")
+        po.add_argument("-o", "--output", default="-")
+        po.add_argument("--sep", default="\t")
+        po.add_argument("--canonical", action="store_true",
+                        help="fold every input to canonical (revcomp-min) "
+                             "form before the op; plain and canonical "
+                             "inputs may be mixed")
+        if op == "subtract":
+            po.add_argument(
+                "--mode", choices=["counters", "kmers"],
+                default="counters",
+                help="counters: subtract the other inputs' counts, drop "
+                     "rows <= 0 (kmc_tools counters_subtract); kmers: "
+                     "drop a k-mer entirely if present in any other "
+                     "input (kmc_tools kmers_subtract)")
+        po.set_defaults(fn=cmd_setop)
+
+    pso = sub.add_parser(
+        "sort", help="sort/normalize a spectrum file (unsorted or "
+                     "mixed-case third-party TSVs)"
+    )
+    pso.add_argument("input", help="spectrum file (KMER<sep>COUNT)")
+    pso.add_argument("-o", "--output", default="-")
+    pso.add_argument("--sep", default="\t")
+    pso.add_argument("--min-count", type=int, default=1, metavar="N",
+                     help="drop k-mers with count < N (kmc_tools "
+                          "transform reduce -ci)")
+    pso.add_argument("--max-count", type=int, default=0, metavar="N",
+                     help="drop k-mers with count > N; 0 = unbounded "
+                          "(kmc_tools transform reduce -cx)")
+    pso.add_argument("--set-count", type=int, default=0, metavar="N",
+                     help="force every surviving counter to N "
+                          "(kmc_tools transform set_counts)")
+    pso.add_argument("--kmers-only", action="store_true",
+                     help="emit only the k-mer column (kmc_tools "
+                          "transform compact)")
+    pso.set_defaults(fn=cmd_sort)
+
+    pz = sub.add_parser(
+        "canonize", help="fold a spectrum to canonical (revcomp-min) form"
+    )
+    pz.add_argument("input", help="spectrum file (KMER<sep>COUNT)")
+    pz.add_argument("-o", "--output", default="-")
+    pz.add_argument("--sep", default="\t")
+    pz.set_defaults(fn=cmd_canonize)
+
+    pq = sub.add_parser("query", help="look up counts of specific k-mers")
+    pq.add_argument("spectrum", help="sorted spectrum file")
+    pq.add_argument("kmers", nargs="*", help="k-mers to look up")
+    pq.add_argument("--kmers-file", default="",
+                    help="file of whitespace-separated k-mers to look "
+                         "up ('-' = stdin); combined with positionals")
+    pq.add_argument("--sep", default="\t")
+    pq.add_argument("--canonical", action="store_true",
+                    help="spectrum is canonical: fold each queried k-mer "
+                         "to revcomp-min form for the lookup")
+    pq.set_defaults(fn=cmd_query)
+
+    pn = sub.add_parser("topn", help="n most frequent k-mers")
+    pn.add_argument("spectrum", help="spectrum file")
+    pn.add_argument("-n", type=int, default=25)
+    pn.add_argument("--sep", default="\t")
+    pn.set_defaults(fn=cmd_topn)
+
+    ph = sub.add_parser(
+        "histo", help="count-of-counts histogram of the spectrum"
+    )
+    _add_common(ph)
+    ph.add_argument("--max-count", type=int, default=10000,
+                    help="clip multiplicities above this into one bin")
+    ph.add_argument("--nonzero-only", action="store_true")
+    ph.add_argument("--from-spectrum", action="store_true",
+                    help="inputs are spectrum TSV files (no recount; "
+                         "-k is ignored)")
+    _add_device(ph, "count on")
+    ph.set_defaults(fn=cmd_histo)
+
+    pif = sub.add_parser(
+        "info", help="summary statistics of a spectrum file"
+    )
+    pif.add_argument("input", help="spectrum file (KMER<sep>COUNT)")
+    pif.add_argument("--sep", default="\t")
+    pif.add_argument("--json", action="store_true",
+                     help="one JSON object instead of key<TAB>value lines")
+    pif.set_defaults(fn=cmd_info)
+
+    psim = sub.add_parser(
+        "similarity",
+        help="similarity metrics between two spectra (Jaccard, "
+             "containment, weighted Jaccard, cosine, Mash distance)",
+    )
+    psim.add_argument("-i", "--input", required=True, nargs="+",
+                      help="two or more spectrum files and/or sketch "
+                           "files (2 = full report; 3+ = pairwise rows, "
+                           "mash dist class)")
+    psim.add_argument("--sep", default="\t")
+    psim.add_argument("--canonical", action="store_true",
+                      help="fold both inputs to revcomp-min form first "
+                           "(plain and canonical spectra may be mixed)")
+    psim.add_argument("--json", action="store_true",
+                      help="one JSON object instead of key<TAB>value "
+                           "lines")
+    psim.set_defaults(fn=cmd_similarity)
+
+    psk = sub.add_parser(
+        "sketch",
+        help="bottom-s MinHash sketch of a sample (Mash class); compare "
+             "sketches with `findkmer similarity`",
+    )
+    psk.add_argument("-i", "--input", required=True, nargs="+",
+                     help="sequence file(s) (with -k, counted as ONE "
+                          "sample) or one spectrum file (without -k)")
+    psk.add_argument("-k", type=int, default=0,
+                     help="k-mer length — sketch sequence inputs; omit "
+                          "to sketch a spectrum file (k inferred)")
+    psk.add_argument("-o", "--output", default="-",
+                     help="sketch JSON ('-' = stdout; .gz compresses)")
+    psk.add_argument("-s", type=int, default=1000,
+                     help="sketch size: keep the s smallest k-mer "
+                          "hashes (default 1000)")
+    psk.add_argument("--canonical", action="store_true",
+                     help="fold k-mers to revcomp-min before hashing")
+    psk.add_argument("--name", default="",
+                     help="sample name stored in the sketch "
+                          "(default: the input path)")
+    psk.add_argument("--per-input", action="store_true",
+                     help="one sketch per input file, written to "
+                          "<stem>.sketch.json under -o DIR "
+                          "(requires -k)")
+    psk.add_argument("--sep", default="\t")
+    _add_device(psk, "count on")
+    psk.set_defaults(fn=cmd_sketch)
+
+    pd = sub.add_parser(
+        "diff", help="diff two spectrum files (exit 1 when different)"
+    )
+    pd.add_argument("-i", "--input", required=True, nargs=2)
+    pd.add_argument("--sep", default="\t")
+    pd.add_argument("--limit", type=int, default=50)
+    pd.add_argument("--in-memory", action="store_true",
+                    help="dict-based diff (unsorted inputs; loads both "
+                         "spectra into RAM — default streams sorted "
+                         "inputs in O(buffers) memory)")
+    pd.set_defaults(fn=cmd_diff)
 
     pf = sub.add_parser(
         "filter",

@@ -1,7 +1,7 @@
 """ctypes loader for the native C encoder (src/native/encode.c).
 
-The port's copy of `findkmer_tpu/io/native.py`, cut down to the entry
-points the port's paths call.  It compiles the repository's C source
+The port's copy of `findkmer_tpu/io/native.py`, with every entry point
+of the original.  It compiles the repository's C source
 `src/native/encode.c` (read, never edited) at first use into the port's
 own build directory, `build/torch_native/`, under a name that carries a
 hash of the source: the JAX package builds the same source into its own
@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, size, i64 = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_longlong
     lib.fk_encode.argtypes = [ptr, ptr, size]
     lib.fk_encode.restype = None
+    lib.fk_encode_packed.argtypes = [ptr, ptr, ptr, size]
+    lib.fk_encode_packed.restype = None
+    lib.fk_count_valid.argtypes = [ptr, size]
+    lib.fk_count_valid.restype = size
     lib.fk_count_acgt.argtypes = [ptr, size]
     lib.fk_count_acgt.restype = size
     lib.fk_encode_compact.argtypes = [ptr, ptr, size]
@@ -179,6 +183,29 @@ def encode(buf: np.ndarray) -> np.ndarray:
     out = np.empty_like(buf)
     lib.fk_encode(_ptr(buf), _ptr(out), buf.size)
     return out
+
+
+def encode_packed(buf: np.ndarray):
+    """bytes -> (packed 2-bit codes, validity bitmask, n) in one C pass."""
+    lib = _require()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    n = buf.size
+    packed = np.empty((n + 3) // 4, dtype=np.uint8)
+    validmask = np.zeros((n + 7) // 8, dtype=np.uint8)
+    lib.fk_encode_packed(_ptr(buf), _ptr(packed), _ptr(validmask), n)
+    return packed, validmask, n
+
+
+def encode_compact(buf) -> np.ndarray:
+    """Raw FASTA sequence bytes -> compacted codes (whitespace removed,
+    non-ACGT -> INVALID) in one C pass."""
+    lib = _require()
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        buf = np.frombuffer(buf, dtype=np.uint8)
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    out = np.empty(buf.size, dtype=np.uint8)
+    m = lib.fk_encode_compact(_ptr(buf), _ptr(out), buf.size)
+    return out[: int(m)]
 
 
 def encode_compact_into(buf: np.ndarray, out: np.ndarray,
@@ -391,6 +418,13 @@ def filter_bitmap_hits2(buf: np.ndarray, byte_starts: np.ndarray,
         _ptr(buf), _ptr(byte_starts), _ptr(joined), _ptr(lens), n, k,
         _ptr(words), halo, _ptr(hits), _ptr(wins))
     return hits, wins
+
+
+def count_valid(buf: np.ndarray) -> int:
+    """Number of A/C/G/T bytes (either case) in buf."""
+    lib = _require()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    return int(lib.fk_count_valid(_ptr(buf), buf.size))
 
 
 def parse_spectrum(buf, k: int, sep: bytes):

@@ -196,6 +196,58 @@ def test_filter_never_imports_jax(fixtures_dir, tmp_path):
         assert (tmp_path / name).read_bytes() == want
 
 
+TOOLS = {
+    "matrix_k21": ["matrix", "-i", "{e}", "{m}", "-k", "21", "--canonical",
+                   "--min-samples", "2", "-o", "x.tsv"],
+    "sketch_k8": ["sketch", "-i", "{e}", "{m}", "-k", "8", "--per-input",
+                  "-o", "sk"],
+    "histo_k21": ["histo", "-i", "{e}", "-k", "21", "--canonical", "-o",
+                  "h.tsv"],
+    "host_tools": None,
+}
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_spectrum_tools_never_import_jax(fixtures_dir, tmp_path, name):
+    """The counting spectrum tools on --device cpu, and a chain of host
+    tools (merge, canonize, expr, matrix, sketch, similarity, info,
+    diff), each in a fresh interpreter with neither jax nor the JAX
+    package loaded."""
+    e = os.path.join(fixtures_dir, "ecoli_frag.fa")
+    m = os.path.join(fixtures_dir, "multi.fa")
+    if TOOLS[name] is not None:
+        argv = [a.format(e=e, m=m) for a in TOOLS[name]]
+        _without_jax(
+            "from findkmer_torch.cli import main\n"
+            f"assert main({argv!r} + ['--device', 'cpu']) == 0\n"
+            "import findkmer_torch.spectra, findkmer_torch.sketch\n",
+            tmp_path)
+        assert any(p.is_file() and p.stat().st_size
+                   for p in tmp_path.rglob("*"))
+        return
+    for path, k in ((e, 21), (m, 21)):
+        name_ = os.path.basename(path) + ".tsv"
+        (tmp_path / name_).write_text("\n".join(spectrum_lines(
+            count_fasta_file(path, k), k)) + "\n")
+    out = _without_jax(
+        "from findkmer_torch.cli import main\n"
+        "import findkmer_torch as fkt\n"
+        "runs = [['merge', '-i', 'ecoli_frag.fa.tsv', 'multi.fa.tsv',"
+        " '-o', 'm.tsv'], ['canonize', 'm.tsv', '-o', 'c.tsv'],"
+        " ['expr', 'A ~ B', '-i', 'A=m.tsv', 'B=multi.fa.tsv', '-o',"
+        " 'e.tsv'], ['sketch', '-i', 'c.tsv', '-o', 'c.json'],"
+        " ['similarity', '-i', 'c.json', 'm.tsv'], ['info', 'c.tsv'],"
+        " ['diff', '-i', 'e.tsv', 'ecoli_frag.fa.tsv']]\n"
+        "for argv in runs:\n"
+        "    assert main(argv) == 0, argv\n"
+        "print(fkt.matrix(['m.tsv', 'e.tsv'], 'x.tsv'))\n"
+        "print(len(fkt.expr('A * B', {'A': 'm.tsv', 'B': 'c.tsv'})))\n"
+        "print(fkt.similarity('m.tsv', 'c.json')['k'])\n",
+        tmp_path)
+    lines = out.strip().splitlines()
+    assert lines[-1] == "21" and int(lines[-3]) > 0
+
+
 def test_filter_engine_device_without_cuda_exits_2(fixtures_dir, tmp_path,
                                                    capsys):
     if torch.cuda.is_available():
@@ -237,7 +289,7 @@ def test_port_sources_do_not_import_jax():
     assert len(sources) > 20
     for new in ("streaming.py", "spill.py", "utils/checkpoint.py",
                 "utils/logging.py", "parallel/multihost.py", "filter.py",
-                "filter_device.py", "spectra.py"):
+                "filter_device.py", "spectra.py", "sketch.py"):
         assert PORT / new in sources
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pat.search(p.read_text())]
@@ -254,6 +306,18 @@ def test_device_cuda_without_cuda_exits_2(fixtures_dir, tmp_path, capsys):
     err = capsys.readouterr().err
     assert "torch.cuda.is_available() is False" in err
     assert not out.exists()  # nothing was counted on the CPU instead
+    # the subcommands that count before their host work: the same, and
+    # no output file or directory is made
+    for argv in (["matrix", "-i", path, path, "-k", "21", "--canonical"],
+                 ["sketch", "-i", path, "-k", "8"],
+                 ["sketch", "-i", path, "-k", "8", "--per-input"],
+                 ["histo", "-i", path, "-k", "21"],
+                 ["histo", "-i", path, "-k", "4", "--nonzero-only"]):
+        rc = torch_cli.main(argv + ["-o", str(out)])
+        assert rc == 2, argv
+        assert "torch.cuda.is_available() is False" in \
+            capsys.readouterr().err, argv
+        assert not out.exists(), argv
 
 
 def test_resolve_device():

@@ -343,6 +343,25 @@ def test_native_entry_points_equal():
         native.format_spectrum(codes, counts, 21, b"::")
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 7, 8, 9, 4097, 1 << 17])
+def test_native_packed_compact_and_valid_equal(n):
+    """encode_packed, encode_compact (from an array and from bytes) and
+    count_valid against the originals, on fuzzed bytes of every class
+    (lengths at the 2-bit and bitmask seams, and past the C loops'
+    multithreading threshold), with whitespace for the compactor."""
+    _need_native()
+    raw = _dna_bytes(n + 11, n)
+    raw[::53] = ord("\n")
+    for a, b in zip(native.encode_packed(raw), jax_native.encode_packed(raw)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(native.encode_compact(raw),
+                                  jax_native.encode_compact(raw))
+    np.testing.assert_array_equal(native.encode_compact(raw.tobytes()),
+                                  jax_native.encode_compact(raw.tobytes()))
+    assert native.count_valid(raw) == jax_native.count_valid(raw) == \
+        int((jax_native.encode(raw) < 4).sum())
+
+
 def _fuzzed_reads(seed, n=300):
     """(joined bytes with one N between reads, starts, lens) of fuzzed
     reads: every byte class of _dna_bytes, empty and all-N reads."""
