@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py [--seed N] [--profile]
-                          [--only rowsort|window|stream|filter|tools|mesh]
+                          [--only rowsort|window|stream|filter|tools|mesh|spill]
+                          [--against DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
 sm_90a) and nvcc.  Each phase prints one JSON line (its `t`: seconds since
@@ -55,18 +56,24 @@ final ok-line is not printed.
      random keys with many duplicates under distinct payloads; shapes
      (3, 1000) and (64, 64) and 37 rows of every row length at a seam of
      the kernel (1, 2, 7, 8, 9, 255, 256, 257, 1023, 1025, 2047, 2049,
-     4096 and 4097, one past the tile) in every key/payload dtype, the
-     production row sorts of a 256 Mbase count ((262144, 1024) int64
-     keys, (262144, 2048) int64 keys + int32 counts, (262144, 1024) int32
-     keys) and one (1, 2^22) row, which takes the kernel's global passes.
-     Then the median CUDA-event ms of the kernel and of the library call
-     (`torch.sort`, plus a gather where there is a payload: also the plain
-     version) at the production shapes, at that one long row and at one
-     row of 2^26 slots (the dedup before a spill decision of phase 11),
-     timed in turn (the kernel sorts in place, so each of its runs restores the input first; that copy is
-     timed alone and subtracted), beside the bound (each byte of the rows
-     read once and written once at 3.35 TB/s, or the network's
-     compare-exchanges at the card's 32-bit rate, whichever is larger)
+     4096, and past the tile 4097, 8191, 8192, 8193, 12289 (sorted
+     inside shared memory), 16385, 32769 and 2^16 + 3 (one, two and three
+     merge passes)) in every key/payload dtype, the production row sorts
+     of a 256 Mbase count ((262144, 1024) int64 keys, (262144, 2048)
+     int64 keys + int32 counts, (262144, 1024) int32 keys), one (1, 2^22)
+     row and one (1, 2^26) row (the dedup before a spill decision of
+     phase 11).  Then the median CUDA-event ms of the kernel and of the
+     library call (`torch.sort`, plus a gather where there is a payload:
+     also the plain version) at the production shapes and at those two
+     long rows, timed in turn (the kernel sorts in place, so each of its
+     runs restores the input first; that copy is timed alone and
+     subtracted), beside the bound (each byte of the rows read once and
+     written once at 3.35 TB/s, or the network's compare-exchanges and
+     the merges' comparisons at the card's 32-bit rate, whichever is
+     larger); for the long rows also the device ms of each stage (the
+     spans' sort inside shared memory, each merge pass, the copy home)
+     from a torch.profiler trace, the pass count and the pass-count
+     bound (passes x the bytes bound), on the `rowsort_timing` line
   6. dense main path: a seeded 256 Mbase multi-record FASTA (N runs,
      lowercase, IUPAC codes, poly-A runs) counted by `findkmer_torch.cli
      count` at --batch-rows 1024 on cuda for k=8, k=8 --canonical and
@@ -199,15 +206,22 @@ the instructions of its production kernels by opcode); with --only window
 phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
 the quick check of an edit to those kernels; with --only stream phases
 1, 2 and 11; with --only filter phases 1, 2 and 12; with --only tools
-phases 1, 2 and 13; with --only mesh phases 1, 2 and 14.  Each of the
-six prints no summary and no ok-line.
+phases 1, 2 and 13; with --only mesh phases 1, 2 and 14; with --only
+spill [--against DIR] phases 1 and 2, then phase 11's `count --spill` as
+a process of its own from this checkout and from DIR (another checkout
+of the port, such as the parent commit unpacked into build/), in turn,
+with each run's wall, dispatch seconds and peak device memory, the
+outputs sha256-equal.  Each of the seven prints no summary and no
+ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
 launches on the main paths: the `count` runs, each run that phase 11
 makes in this process, the filter runs of phase 12, which launch none,
 the runs on the card of phase 13 and the mesh runs of phase 14
-(`launches_by_path`), each counted from 0; its
-ms beside the plain version's, the one
+(`launches_by_path`), each counted from 0, and for K3 apart those on
+rows longer than a tile (`long_launches_by_path`: the dedups of the spill
+paths, none in a plain `count` or `stream`); its ms beside the plain
+version's, the one
 library call's where there is one, and its bound); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -249,6 +263,7 @@ from findkmer_torch.ops.cuda.histogram_kernel import (
     private_bins,
 )
 from findkmer_torch.ops.cuda.rowsort_kernel import (
+    sort_plan,
     sort_rows_cuda,
     sort_rows_reference,
 )
@@ -294,16 +309,19 @@ SORT_SHAPES = (
     ("counted_k21", (262144, 2048), torch.int64, torch.int32),
     ("raw_k15", (262144, 1024), torch.int32, None),
 )
-# one row that takes K3's global passes (the cross-row dedup's shape)
+# one row that takes K3's merge passes (the cross-row dedup's shape)
 LONG_ROW = ("long_row", (1, 1 << 22), torch.int64, torch.int32)
 # the same at the size of the dedup before a spill decision of `count
-# --spill` at 256 Mbase: the whole store as one row (timed, not re-checked)
+# --spill` at 256 Mbase: the whole store as one row
 DEDUP_ROW = ("dedup_row", (1, 1 << 26), torch.int64, torch.int32)
 SORT_CASES = ("random", "equal", "sentinel", "sorted", "reversed")
 # row lengths at the seams of K3: a thread's 8 slots, a warp's 256, the
-# production rows' 1024 and 2048, the tile of 4096 and one past it
+# production rows' 1024 and 2048, the tile of 4096; past it the sort
+# inside shared memory alone (to 12289 at 12 bytes a slot; 8193 and 12289
+# take a merge pass at 16), then one merge pass (16385: the copy home), two
+# (32769, whose last run is alone) and three (2^16 + 3)
 SORT_SEAMS = (1, 2, 7, 8, 9, 255, 256, 257, 1023, 1025, 2047, 2049, 4096,
-              4097)
+              4097, 8191, 8192, 8193, 12289, 16385, 32769, (1 << 16) + 3)
 SEAM_ROWS = 37
 # the card's published peaks (H100 SXM): device memory, and 32-bit
 # operations outside the tensor cores
@@ -350,31 +368,36 @@ def phase_environment() -> str:
 
 
 def phase_ptxas(name: str) -> None:
-    """What `nvcc -Xptxas -v` says of one source's kernels: registers,
-    spills, shared memory (a second compile of that source, to no file)."""
+    """What `nvcc -Xptxas -v` says of one source's kernels: registers and
+    static shared memory of each, and the bytes of those that spill (a
+    second compile of that source, to no file)."""
     t0 = time.perf_counter()
     res = subprocess.run(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
          "-o", os.devnull, str(_build.CSRC / name)],
         capture_output=True, text=True, check=True)
-    lines = res.stderr.splitlines()
-    registers, entry = {}, None
-    for ln in lines:
-        if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
+    registers, smem, spills, entry = {}, {}, {}, None
+    for ln in res.stderr.splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        elif "spill stores" in ln and entry:
+            stores, loads = re.findall(r"(\d+) bytes spill", ln)
+            if int(stores) or int(loads):
+                spills[entry] = {"stores": int(stores), "loads": int(loads)}
         elif "Used" in ln and entry:
             registers[entry] = int(ln.split("Used ")[1].split(" registers")[0])
-    spills = [ln.strip() for ln in lines
-              if "spill" in ln and "0 bytes spill stores, 0 bytes" not in ln]
+            m = re.search(r"(\d+) bytes smem", ln)
+            smem[entry] = int(m.group(1)) if m else 0
     say("ptxas", source=name, seconds=time.perf_counter() - t0,
-        kernels=len(registers), registers=registers, spills=spills)
+        kernels=len(registers), registers=registers, smem=smem,
+        spills=spills)
 
 
 # the row sort's instantiations at SORT_SHAPES, by a piece of their mangled
 # names: key type, payload type, log2 of the tile
-SORT_SASS = {"raw_k21": "sort_tilesIlNS_5NoValELi10ELb0",
-             "counted_k21": "sort_tilesIliLi11ELb0",
-             "raw_k15": "sort_tilesIiNS_5NoValELi10ELb0"}
+SORT_SASS = {"raw_k21": "sort_tilesIlNS_5NoValELi10EE",
+             "counted_k21": "sort_tilesIliLi11EE",
+             "raw_k15": "sort_tilesIiNS_5NoValELi10EE"}
 
 
 # K2's kernels by a piece of their mangled names: source of bases, bins,
@@ -832,7 +855,7 @@ def phase_rowsort_vs_plain(seed: int) -> int:
     combos += [((SEAM_ROWS, C), kd, vd) for C in SORT_SEAMS
                for kd in dts for vd in (None,) + dts]
     combos += [(shape, kd, vd) for _, shape, kd, vd in SORT_SHAPES]
-    combos.append(LONG_ROW[1:])
+    combos += [LONG_ROW[1:], DEDUP_ROW[1:]]
     n_cases = 0
     for shape, kd, vd in combos:
         for case in SORT_CASES + ("duplicates",):
@@ -861,23 +884,118 @@ def phase_rowsort_vs_plain(seed: int) -> int:
     return 0
 
 
+def _stage_ms(shape, kd, vd, seed: int, passes: int,
+              reps: int = 3) -> dict:
+    """Device ms of each stage of K3's sort of a long row of random
+    codes, read from one torch.profiler trace (`utils.prof.device_trace`)
+    of reps + 1 `sort_rows_cuda` calls, each on the input restored; the
+    first is a warm-up and not read (a trace may lose the first kernel it
+    sees), the rest give medians.  `stage_ms` lists the spans' sort inside
+    shared memory (sort_spans), each merge pass (its merge_partition
+    launch and its merge_pass) and the copy home (0 after an even pass
+    count); `partition_ms` the partition launches alone.  The result
+    must equal the plain version's keys.  Runs in a process of its own
+    (`_stage_ms_apart`)."""
+    from findkmer_torch.utils.prof import device_trace
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    src = _sort_input(shape, kd, "random", gen)
+    vsrc = None if vd is None else torch.ones(shape, dtype=vd,
+                                              device="cuda")
+    kbuf = torch.empty_like(src)
+    vbuf = None if vsrc is None else torch.empty_like(vsrc)
+    with tempfile.TemporaryDirectory(prefix="k3_trace_") as d:
+        with device_trace(d):
+            for _ in range(reps + 1):
+                kbuf.copy_(src)
+                if vbuf is not None:
+                    vbuf.copy_(vsrc)
+                sort_rows_cuda(kbuf, vbuf)
+            torch.cuda.synchronize()
+        (name,) = os.listdir(d)
+        with open(os.path.join(d, name)) as f:
+            events = json.load(f)["traceEvents"]
+    if not torch.equal(kbuf, sort_rows_reference(src)[0]):
+        raise AssertionError("K3 under the profiler != plain")
+    dev = sorted((e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy")),
+                 key=lambda e: e["ts"])
+    # after each sort_spans: the passes, then the copies home
+    want_seq = (["merge_partition", "merge_pass"] * passes
+                + ["gpu_memcpy"] * ((passes % 2) * (1 if vbuf is None
+                                                   else 2)))
+    starts = [i for i, e in enumerate(dev) if "sort_spans" in e["name"]]
+    runs = []
+    for i in starts[-reps:]:
+        seq = dev[i + 1:i + 1 + len(want_seq)]
+        if len(seq) != len(want_seq) or not all(
+                w == e["cat"] if w == "gpu_memcpy" else f"::{w}<" in e["name"]
+                for w, e in zip(want_seq, seq)):
+            raise AssertionError(
+                f"K3's trace of {tuple(shape)} after sort_spans: "
+                f"{[e['name'][:60] for e in seq]}")
+        ms = [e["dur"] / 1000 for e in dev[i:i + 1 + len(want_seq)]]
+        part, merge = ms[1:2 * passes:2], ms[2:2 * passes + 1:2]
+        runs.append([ms[0]] + [a + b for a, b in zip(part, merge)]
+                    + [sum(ms[2 * passes + 1:])] + part)
+    if len(runs) != reps:
+        raise AssertionError(f"K3's trace of {tuple(shape)} shows "
+                             f"{len(starts)} of {reps + 1} sorts")
+    med = [statistics.median(r[i] for r in runs) for i in range(len(runs[0]))]
+    return {"stage_ms": med[:passes + 2], "partition_ms": med[passes + 2:]}
+
+
+# `_stage_ms` of each long row in a process of its own: a second
+# torch.profiler session in one process may record no device events, and
+# this process keeps its one for phase 14's `--profile` check
+STAGE_PROBE = (
+    "import json, sys, torch\n"
+    "import chip_smoke as cs\n"
+    "rows = json.loads(sys.argv[1])\n"
+    "dt = lambda s: None if s is None else getattr(torch, s[len('torch.'):])\n"
+    "print(json.dumps({name: cs._stage_ms(shape, dt(kd), dt(vd), seed, n)\n"
+    "                  for name, shape, kd, vd, seed, n in rows}))\n")
+
+
+def _stage_ms_apart(rows: list) -> dict:
+    """{name: `_stage_ms`} of rows [name, shape, keys dtype, vals dtype
+    (str or None), seed, merge passes], in one child process."""
+    res = subprocess.run(
+        [sys.executable, "-c", STAGE_PROBE, json.dumps(rows)], cwd=REPO,
+        capture_output=True, text=True)
+    if res.returncode:
+        raise AssertionError(f"K3's stage trace exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.splitlines()[-1])
+
+
 def phase_rowsort_timing(seed: int) -> dict:
     """Median CUDA-event ms of K3 and of the library call (`torch.sort`,
     plus a gather of the payload: the plain version too) at the production
     row-sort shapes and at one long row of 2^22 and of 2^26 slots, random
-    codes, timed in turn.  The kernel sorts in place: each of its runs first restores the unsorted input (`copy`,
-    timed alone too); its ms is kernel+copy minus copy.  The bound counts
-    keys and payload read once and written once, and the network's
-    compare-exchanges (P/2 a stage, log2(P) (log2(P) + 1) / 2 stages for
-    rows of P = next_pow2(C) slots)."""
+    codes, timed in turn.  The kernel sorts in place: each of its runs
+    first restores the unsorted input (`copy`, timed alone too); its ms
+    is kernel+copy minus copy.  The bound counts keys and payload read
+    once and written once, and the operations: the network's
+    compare-exchanges on a row of up to a tile (P/2 a stage, log2(P)
+    (log2(P) + 1) / 2 stages, P = next_pow2(C)), a comparison a slot and
+    level of the merge sort (log2(P) levels) on a longer one.  The long
+    rows also take the device ms of each stage from a profiler trace in a
+    child process (`_stage_ms_apart`), the pass count (each stage reads
+    and writes the row once) and the pass-count bound: that many times
+    the bytes bound."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     timing = {}
+    long_rows = []
     for name, shape, kd, vd in SORT_SHAPES + (LONG_ROW, DEDUP_ROW):
         src = _sort_input(shape, kd, "random", gen)
         vsrc = None if vd is None else torch.ones(shape, dtype=vd,
                                                   device="cuda")
         kbuf = torch.empty_like(src)
         vbuf = None if vsrc is None else torch.empty_like(vsrc)
+        G, C = shape
+        plan = sort_plan(G, C, src.element_size(),
+                         0 if vsrc is None else vsrc.element_size())
 
         def copy():
             kbuf.copy_(src)
@@ -895,17 +1013,49 @@ def phase_rowsort_timing(seed: int) -> dict:
         })
         t["kernel"] = {"ms": t["kernel+copy"]["ms"] - t["copy"]["ms"]}
         slot = src.element_size() + (vsrc.element_size() if vd else 0)
-        log_p = (shape[1] - 1).bit_length()
+        # the network's compare-exchanges on a row of up to a tile, one
+        # comparison a slot a level of the merge sort on a longer one
+        log_p = (C - 1).bit_length()
         bound = _bound(2 * src.numel() * slot,
-                       shape[0] * (1 << log_p >> 1) * log_p * (log_p + 1) / 2)
+                       src.numel() * log_p if plan.long_row
+                       else G * (1 << log_p >> 1) * log_p * (log_p + 1) / 2)
         timing[name] = {"shape": list(shape), "keys": str(kd),
                         "vals": str(vd), **t,
                         "library_ms": t["plain"]["ms"], **bound,
                         "share_of_bound": bound["bound_ms"] / t["kernel"]["ms"]}
+        if plan.long_row:
+            # the spans' sort, each merge pass, the copy home after odd
+            passes = 1 + plan.passes + plan.passes % 2
+            timing[name].update(
+                passes=passes, merge_passes=plan.passes,
+                pass_bound_ms=passes * bound["bound_ms"],
+                share_of_pass_bound=passes * bound["bound_ms"]
+                / t["kernel"]["ms"])
+            long_rows.append([name, shape, str(kd), None if vd is None
+                              else str(vd), seed + 3, plan.passes])
         del src, vsrc, kbuf, vbuf
         torch.cuda.empty_cache()
+    for name, stages in _stage_ms_apart(long_rows).items():
+        timing[name].update(stages)
     say("rowsort_timing", timing=timing)
     return timing
+
+
+class _LongRows:
+    """K3's launches on rows longer than a tile (`sort_rows_cuda.
+    long_launches`: the merge passes) as a counter with `launches`, so the
+    phases count them from 0 beside the wrappers' own."""
+
+    @property
+    def launches(self) -> int:
+        return sort_rows_cuda.long_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        sort_rows_cuda.long_launches = n
+
+
+SORT_LONG = _LongRows()
 
 
 class _RowSortTap:
@@ -977,6 +1127,7 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
     with _RowSortTap() as tap:
         tap.timed = True
         sort_rows_cuda.launches = 0
+        sort_rows_cuda.long_launches = 0
         histogram_cuda.launches = 0
         fused_window_histogram_cuda.launches = 0
         for k, extra in SPARSE_RUNS:
@@ -1023,7 +1174,11 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 sha256=digests["auto"])
         if histogram_cuda.launches or fused_window_histogram_cuda.launches:
             raise AssertionError("the sparse path launched a histogram")
-    return sort_rows_cuda.launches, runs
+        if sort_rows_cuda.long_launches:
+            raise AssertionError(
+                f"a plain count sorted {sort_rows_cuda.long_launches} rows "
+                "longer than a tile (no dedup expected)")
+    return sort_rows_cuda.launches, sort_rows_cuda.long_launches, runs
 
 
 def phase_sparse_device_step(fasta: str) -> None:
@@ -1207,7 +1362,8 @@ def phase_stream(tmp: str, seed: int) -> dict:
             batches=stats["batches"])
     wrappers = {"histogram_cuda": histogram_cuda,
                 "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                "sort_rows_cuda": sort_rows_cuda}
+                "sort_rows_cuda": sort_rows_cuda,
+                "sort_rows_cuda_long": SORT_LONG}
     by_run = {name: {} for name in wrappers}
 
     def counted_run(run: str, *cli, **kw):
@@ -1275,6 +1431,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
     saves = checkpoints(full)
     k3 = launched["sort_rows_cuda"]
     if (k3 != sorts.calls or k3 != SPARSE_STREAM_SORTS
+            or launched["sort_rows_cuda_long"]
             or len(saves["files"]) != 3
             or launched["histogram_cuda"]
             or launched["fused_window_histogram_cuda"]):
@@ -1334,7 +1491,9 @@ def phase_stream(tmp: str, seed: int) -> dict:
     if len(tap.calls) < 3 or left != ["stream.token"]:
         raise AssertionError(
             f"spill: {len(tap.calls)} runs written, {left} left in the dir")
-    if launched["sort_rows_cuda"] != sorts.calls:
+    # the dedup before each spill decision sorts the store as one row
+    if (launched["sort_rows_cuda"] != sorts.calls
+            or not launched["sort_rows_cuda_long"]):
         raise AssertionError(
             f"count --spill: launches {launched} for {sorts.calls} row sorts")
     digest, size = _hashed(out, want["sparse"], "count --spill")
@@ -1346,8 +1505,9 @@ def phase_stream(tmp: str, seed: int) -> dict:
         residual_pull_s=ph["finalize/residual_pull"]["total_s"],
         merge_s=ph["finalize/merge"]["total_s"],
         merge_blocks=ph["finalize/merge"]["calls"],
-        k3_launches=launched["sort_rows_cuda"], row_sorts=sorts.calls,
-        wall_s=wall,
+        k3_launches=launched["sort_rows_cuda"],
+        k3_long_launches=launched["sort_rows_cuda_long"],
+        row_sorts=sorts.calls, wall_s=wall,
         cli_wall_s=stats["wall_s"], bases_per_s=stats["bases_per_s"],
         phases=ph, out_bytes=size, sha256=digest, identical_to_count=True,
         run_files_left=0)
@@ -1409,6 +1569,70 @@ def phase_stream(tmp: str, seed: int) -> dict:
         raise AssertionError(f"stream phase: a kernel never ran: {by_run}")
     say("stream_launches", **by_run)
     return by_run
+
+
+# `count --spill` in a process of its own from the checkout it runs in:
+# the peak of device memory its tensors held, on stderr beside --stats json
+SPILL_PROBE = (
+    "import json, sys, torch\n"
+    "from findkmer_torch import cli\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'peak_bytes': torch.cuda.max_memory_allocated()}),"
+    " file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
+def phase_spill_ab(tmp: str, seed: int, against: str) -> dict:
+    """Phase 11's `count --spill` (its genome and flags) from this
+    checkout and from `against`, another checkout of the port (the parent
+    commit, unpacked), each run a process of its own, in turn: this,
+    against, against, this.  Each run's wall, `dispatch` seconds (the
+    compactions and dedups: K3 inside) and peak device memory
+    (`torch.cuda.max_memory_allocated`); every output sha256-equal.
+    Without `against`, this checkout four times."""
+    fasta = os.path.join(tmp, "stream_genome.fa")
+    write_genome(fasta, seed + 5, total=STREAM_GENOME_BASES)
+    trees = {"this": REPO, "against": os.path.abspath(against or REPO)}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for tree in set(trees.values()):  # each builds its kernels first
+        subprocess.run([sys.executable, "-c", "from findkmer_torch.ops.cuda "
+                        "import _build; _build.load()"], cwd=tree, env=env,
+                       check=True)
+    runs, digests = {name: [] for name in trees}, set()
+    for name in ("this", "against", "against", "this"):
+        sp, out = os.path.join(tmp, "sp"), os.path.join(tmp, "spill.tsv")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", SPILL_PROBE, "count", "-i", fasta, "-o",
+             out, "--spill", sp, "--stats", "json"] + STREAM_SPARSE
+            + SPILL_FLAGS + STREAM_GEOM,
+            cwd=trees[name], env=env, capture_output=True, text=True)
+        wall = time.perf_counter() - t0
+        if res.returncode:
+            raise AssertionError(f"count --spill in {trees[name]} exited "
+                                 f"{res.returncode}: {res.stderr[-2000:]}")
+        lines = [json.loads(ln) for ln in res.stderr.splitlines()
+                 if ln.startswith("{")]
+        stats = next(ln for ln in lines if "phases" in ln)
+        peak = next(ln["peak_bytes"] for ln in lines if "peak_bytes" in ln)
+        digest, size = _sha256_and_delete(out)
+        digests.add(digest)
+        shutil.rmtree(sp)
+        run = {"tree": trees[name], "process_wall_s": wall,
+               "cli_wall_s": stats["wall_s"],
+               "dispatch_s": stats["phases"]["dispatch"]["total_s"],
+               "peak_device_bytes": peak, "out_bytes": size,
+               "sha256": digest}
+        runs[name].append(run)
+        say("spill_ab_run", which=name, **run)
+    os.unlink(fasta)
+    if len(digests) != 1:
+        raise AssertionError(f"count --spill outputs differ: {digests}")
+    say("spill_ab", args=STREAM_SPARSE + SPILL_FLAGS, **{
+        name: {key: [r[key] for r in rs] for key in (
+            "cli_wall_s", "dispatch_s", "peak_device_bytes")}
+        for name, rs in runs.items()}, sha256=digests.pop())
+    return runs
 
 
 def write_genome(path: str, seed: int, total: int = GENOME_BASES) -> None:
@@ -1957,7 +2181,8 @@ def phase_filter(tmp: str, seed: int) -> dict:
         spectrum_bytes={k: os.path.getsize(v) for k, v in spec.items()})
     wrappers = {"histogram_cuda": histogram_cuda,
                 "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                "sort_rows_cuda": sort_rows_cuda}
+                "sort_rows_cuda": sort_rows_cuda,
+                "sort_rows_cuda_long": SORT_LONG}
     for fn in wrappers.values():
         fn.launches = 0
     out1 = os.path.join(tmp, "kept.fq")
@@ -2146,7 +2371,8 @@ def phase_tools(tmp: str, seed: int) -> dict:
     os.makedirs(o["skspec"])
     wrappers = {"histogram_cuda": histogram_cuda,
                 "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                "sort_rows_cuda": sort_rows_cuda}
+                "sort_rows_cuda": sort_rows_cuda,
+                "sort_rows_cuda_long": SORT_LONG}
     counting = []
 
     def on_card(name: str, argv: list, n_bases: int) -> tuple:
@@ -2359,7 +2585,8 @@ MESH_SPILL_CAPACITY = 1 << 20
 COORD_BASES = 32 << 20
 MESH_WRAPPERS = {"histogram_cuda": histogram_cuda,
                  "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                 "sort_rows_cuda": sort_rows_cuda}
+                 "sort_rows_cuda": sort_rows_cuda,
+                 "sort_rows_cuda_long": SORT_LONG}
 
 
 def _sha256_of_cli(args, out: str) -> tuple:
@@ -2520,8 +2747,10 @@ def phase_mesh(tmp: str, seed: int) -> dict:
             torch.cuda.empty_cache()
         launched = {name: w.launches for name, w in MESH_WRAPPERS.items()}
         sorts = tap.calls
+    # the spill leg dedups its shards' stores as long rows
     if (launched["fused_window_histogram_cuda"] == 0 or sorts == 0
-            or launched["sort_rows_cuda"] != sorts):
+            or launched["sort_rows_cuda"] != sorts
+            or not launched["sort_rows_cuda_long"]):
         raise AssertionError(f"mesh phase: launches {launched} for {sorts} "
                              "row sorts")
     say("mesh_launches", **launched, row_sorts=sorts)
@@ -2550,13 +2779,18 @@ def main() -> int:
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
     ap.add_argument("--only", choices=["rowsort", "window", "stream",
-                                       "filter", "tools", "mesh"],
+                                       "filter", "tools", "mesh", "spill"],
                     help="run only the row sort's phases (K3), only the "
                          "histogram kernels' (K1 and K2), only the "
                          "restartable stream's, only read filtering's, "
-                         "only the spectrum tools', or only the mesh's, "
-                         "and stop: no summary, no ok-line; the quick "
-                         "check of an edit")
+                         "only the spectrum tools', only the mesh's, or "
+                         "only the `count --spill` A/B (--against), and "
+                         "stop: no summary, no ok-line; the quick check of "
+                         "an edit")
+    ap.add_argument("--against", metavar="DIR",
+                    help="with --only spill: another checkout of the port "
+                         "(e.g. the parent commit) whose `count --spill` "
+                         "runs in turn with this one's")
     args = ap.parse_args()
 
     smi = phase_environment()
@@ -2583,6 +2817,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_mesh(tmp, args.seed)
         return 0
+    if args.only == "spill":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_spill_ab(tmp, args.seed, args.against)
+        return 0
     if args.only == "window":
         phase_ptxas("histogram.cu")
         phase_ptxas("window_histogram.cu")
@@ -2601,7 +2839,8 @@ def main() -> int:
         fasta = phase_genome(tmp, args.seed)
         launches, k2_launches, runs = phase_main_path(fasta, tmp,
                                                       args.profile)
-        sort_launches, sparse_runs = phase_sparse_main_path(tmp, fasta)
+        sort_launches, long_launches, sparse_runs = phase_sparse_main_path(
+            tmp, fasta)
         phase_sparse_device_step(fasta)
         os.unlink(fasta)
         phase_oracle(tmp)
@@ -2677,6 +2916,9 @@ def main() -> int:
         "source": "findkmer_torch/csrc/rowsort.cu",
         "replaces": "bench/probe_plsort.py:43",
         **launches_of("sort_rows_cuda", sort_launches),
+        # of them on rows longer than a tile: the merge passes
+        **{f"long_{key}": v for key, v in launches_of(
+            "sort_rows_cuda_long", long_launches).items()},
         "max_abs_err": sort_err,
         "ms": raw21["kernel"]["ms"],
         "plain_ms": raw21["plain"]["ms"],

@@ -130,12 +130,17 @@ def load() -> ctypes.CDLL:
         ptr, ptr, ctypes.c_int64, ptr, ctypes.c_int, ctypes.c_int, ptr,
     ]
     lib.fk_histogram.restype = ctypes.c_int
+    i64 = ctypes.c_int64
     lib.fk_sort_rows.argtypes = [
-        ptr, ptr, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ptr,
+        ptr, ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int, ctypes.c_int, ptr,
     ]
     lib.fk_sort_rows.restype = ctypes.c_int
-    i64 = ctypes.c_int64
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.fk_sort_rows_scratch.argtypes = [
+        i64, i64, ctypes.c_int, ctypes.c_int, i32p, i32p,
+        ctypes.POINTER(i64),
+    ]
+    lib.fk_sort_rows_scratch.restype = ctypes.c_int
     lib.fk_window_histogram.argtypes = [
         ptr, i64, i64, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
     ]

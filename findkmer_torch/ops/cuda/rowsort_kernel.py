@@ -13,7 +13,17 @@ kernel.  For CPU tensors, and only for those, it runs the plain version
 payload) and writes its result back in place.  A build or launch failure
 raises; nothing falls back.  `sort_rows_cuda.launches` counts the
 kernel's launches (never the plain version's), so a run can show that
-its compactions went through the kernel.
+its compactions went through the kernel; `sort_rows_cuda.long_launches`
+counts those of them on rows longer than a tile (the merge sort: the
+cross-row dedup, a raised --sparse-capacity).
+
+Rows longer than a tile are a merge sort: spans sorted in place inside
+shared memory, then merge-path passes that ping-pong between the rows
+and a scratch of their shape.  The geometry lives in the kernel's source
+alone: `sort_plan` asks the library how many passes a shape takes and
+how many splits they need, and the wrapper allocates the scratch and the
+splits with `torch.empty`, so the caching allocator sees them; the
+kernel allocates nothing.
 
 `sort_rows` is what the compaction calls: the kernel's wrapper, or the
 plain version when asked for it (`KmerCounter(row_sort="plain")`, which
@@ -26,7 +36,8 @@ follows does not depend on the order of equal keys.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +76,45 @@ def _check(keys: torch.Tensor, vals: Optional[torch.Tensor]) -> None:
         raise ValueError("vals must be contiguous")
 
 
+class SortPlan(NamedTuple):
+    """What the kernel does with a shape (`fk_sort_rows_scratch`):
+    long_row when the rows are longer than a tile (the merge sort),
+    passes its merge passes, parts the int64 splits they need."""
+
+    long_row: bool
+    passes: int
+    parts: int
+
+
+def sort_plan(G: int, C: int, key_bytes: int, val_bytes: int) -> SortPlan:
+    """The library's plan for G rows of C slots of key_bytes keys and
+    val_bytes payloads (0: none).  Builds the kernels if needed."""
+    from findkmer_torch.ops.cuda import _build
+
+    long_row, passes, parts = ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
+    if _build.load().fk_sort_rows_scratch(
+            G, C, key_bytes, val_bytes, ctypes.byref(long_row),
+            ctypes.byref(passes), ctypes.byref(parts)):
+        raise ValueError(f"no row sort of ({G}, {C}) with {key_bytes}-byte "
+                         f"keys and {val_bytes}-byte payloads")
+    return SortPlan(bool(long_row.value), passes.value, parts.value)
+
+
+def _scratch(keys: torch.Tensor, vals: Optional[torch.Tensor],
+             plan: SortPlan) -> tuple:
+    """The merge passes' buffers: scratch keys and vals of the rows'
+    shape and the splits; all None for rows that take no merge pass."""
+    if not plan.passes:
+        return None, None, None
+    return (torch.empty_like(keys),
+            None if vals is None else torch.empty_like(vals),
+            torch.empty(plan.parts, dtype=torch.int64, device=keys.device))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def sort_rows_cuda(
     keys: torch.Tensor, vals: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -86,11 +136,12 @@ def sort_rows_cuda(
 
     lib = _build.load()
     G, C = keys.shape
+    sizes = keys.element_size(), 0 if vals is None else vals.element_size()
+    plan = sort_plan(G, C, *sizes)
     with torch.cuda.device(dev):
+        scratch = _scratch(keys, vals, plan)
         err = lib.fk_sort_rows(
-            keys.data_ptr(), None if vals is None else vals.data_ptr(),
-            G, C, keys.element_size(),
-            0 if vals is None else vals.element_size(),
+            _ptr(keys), _ptr(vals), *map(_ptr, scratch), G, C, *sizes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -100,10 +151,12 @@ def sort_rows_cuda(
             f"{err} ({msg})"
         )
     sort_rows_cuda.launches += 1
+    sort_rows_cuda.long_launches += plan.long_row
     return keys, vals
 
 
 sort_rows_cuda.launches = 0
+sort_rows_cuda.long_launches = 0
 
 
 def sort_rows(

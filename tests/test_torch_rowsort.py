@@ -1,14 +1,21 @@
 """K3, the row sort of the sparse store: its plain version, its wrapper
-on the CPU, and the kernel's compare-exchange network.
+on the CPU, and the kernel's schedule.
 
 The kernel itself runs only on a CUDA card (the `cuda` tests at the end;
 `chip_smoke.py` holds it against the plain version at the production
-shapes).  Here its schedule is replayed in numpy, phase by phase with the
-index arithmetic of `csrc/rowsort.cu`: the home layout's register and
-shuffle stages, the column layouts between shared-memory transposes, the
-global passes of rows longer than a tile, including the slots past C that
-act as +infinity; keys are integers, so every check is exact.
+shapes).  Here its schedule is replayed in numpy with the index
+arithmetic of `csrc/rowsort.cu`: the tile network phase by phase (the home
+layout's register and shuffle stages, the column layouts between
+shared-memory transposes, the slots past C that act as +infinity), and
+for rows longer than a tile the merge-path passes block by block and
+thread by thread (the splits, the shared-memory slices, the serial
+merges, the scratch ping-pong and the copy home); keys are integers, so
+every check is exact.
 """
+
+import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -119,7 +126,7 @@ def col_slot(t, r, LB, mirror):
     return ((t >> LB) << (LB + LOG_E)) | (r << LB) | low
 
 
-def _tile_schedule(log_t, LV, merge=False):
+def _tile_schedule(log_t, LV):
     """The phases of sort_small (log_t == 8: a warp's 256 slots, whatever
     the row's length) and sort_tiles (log_t >= 9) as
     (layout, stages): layout ("home",) or ("col", LB, mirror); a stage is
@@ -139,9 +146,6 @@ def _tile_schedule(log_t, LV, merge=False):
             B = LO - 1
         return out
 
-    if merge:
-        return wide_strides(log_t - 1) + [(("home",),
-                                           home_strides(LOG_WARP - 1))]
     stages = []
     for L in range(1, LOG_WARP + 1):
         stages.append((flip_rmask(L, LV), flip_lmask(L, LV), L - 1,
@@ -160,6 +164,7 @@ def _tile_schedule(log_t, LV, merge=False):
     return phases
 
 
+@functools.lru_cache(maxsize=None)
 def _stage_pairs(layout, stage, log_t, LV):
     """(lower slots, upper slots) of one stage, through the kernel's
     partner arithmetic, with the checks of ownership."""
@@ -215,42 +220,251 @@ def _apply(keys, vals, lo, hi, whole_pair=False):
 
 
 def _network(keys, vals, LV=1):
-    """The kernel's whole schedule on copies, in numpy: slots past C hold
-    the key type's maximum beside the largest payload (and never move);
-    rows longer than a tile run
-    the tiles, then per merge size the global passes and the tiles' MERGE
-    form.  -> (keys, vals, transposes of the first tile sort)."""
+    """The kernel's whole schedule on copies, in numpy.  Rows of up to a
+    tile run the network at next_pow2(C) (at least a warp's 256 slots),
+    the slots past C holding the key type's maximum beside the largest
+    payload, which never move.  Longer rows take the spans' sort inside
+    shared memory (`_sort_spans`), then the merge passes
+    (`_merge_passes`).  -> (keys, vals, transposes of the network)."""
     G, C = keys.shape
-    # a row of up to 256 slots is sorted as a warp's 256
-    log_p = max(max(C - 1, 0).bit_length(), LOG_WARP)
-    P = 1 << log_p
+    if C > TILE:
+        slot = keys.itemsize + vals.itemsize
+        rk_, rv_ = keys.copy(), vals.copy()
+        _sort_spans(rk_, rv_, slot)
+        rk_, rv_ = _merge_passes(rk_, rv_, slot)
+        return rk_, rv_, 0
+    log_t = max(max(C - 1, 0).bit_length(), LOG_WARP)
+    P = 1 << log_t
     pk = np.full((G, P), np.iinfo(keys.dtype).max, keys.dtype)
     pv = np.full((G, P), -1, vals.dtype)
     pk[:, :C], pv[:, :C] = keys, vals
-    log_t = min(log_p, MAX_LOG_TILE)
-    tile = 1 << log_t
-
-    def run_tiles(merge):
-        phases = _tile_schedule(log_t, LV, merge)
-        for t0 in range(0, P, tile):
-            for layout, stages in phases:
-                for stage in stages:
-                    lo, hi = _stage_pairs(layout, stage, log_t, LV)
-                    _apply(pk, pv, lo + t0, hi + t0, whole_pair=stage[1] != 0)
-        return sum(1 for a, b in zip(phases, phases[1:]) if a[0] != b[0])
-
-    transposes = run_tiles(False)
-    i = np.arange(P)
-    for L in range(log_t + 1, log_p + 1):  # global passes, then MERGE tiles
-        for b in [None] + list(range(L - 2, log_t - 1, -1)):
-            p = i ^ ((1 << L) - 1) if b is None else i ^ (1 << b)
-            m = (i < p) & (p < C)  # a pair reaching past C is skipped
-            _apply(pk, pv, i[m], p[m])
-        run_tiles(True)
+    phases = _tile_schedule(log_t, LV)
+    for layout, stages in phases:
+        for stage in stages:
+            lo, hi = _stage_pairs(layout, stage, log_t, LV)
+            _apply(pk, pv, lo, hi, whole_pair=stage[1] != 0)
     # padding never moved
     assert np.all(pk[:, C:] == np.iinfo(keys.dtype).max)
     assert np.all(pv[:, C:] == -1)
+    transposes = sum(1 for a, b in zip(phases, phases[1:]) if a[0] != b[0])
     return pk[:, :C], pv[:, :C], transposes
+
+
+# ---- rows longer than a tile: the merge sort, replayed ----------------------
+#
+# The constants are read out of the source, so the replay cannot drift
+# from the kernel.  sort_spans: a block of SPAN_THREADS loads a span of
+# span_slots slots of a row into shared memory, thread t sorts slots t*VT
+# .. t*VT + VT - 1 in registers (a direction-free bitonic network), then
+# the runs merge level by level, thread t merging outputs t*VT .. of its
+# pair from its own diagonal.  A merge pass merges each pair of
+# neighbouring runs of w slots: span b owns output slots [o0, o0 +
+# MERGE_SPAN) of its row, its splits are `merge_path` at its two diagonals
+# (one a span from the partition launch), its a and b slices go to shared
+# memory, and each of MERGE_THREADS threads merges MERGE_VT outputs there.
+
+_SRC = (Path(__file__).resolve().parents[1] / "findkmer_torch" / "csrc"
+        / "rowsort.cu").read_text()
+
+
+def _constexpr(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _SRC).group(1))
+
+
+MERGE_THREADS = _constexpr("kMergeThreads")
+MERGE_VT = _constexpr("kMergeVT")
+MERGE_SPAN = MERGE_THREADS * MERGE_VT
+SPAN_THREADS = _constexpr("kSpanThreads")
+TILE = 1 << MAX_LOG_TILE
+assert _constexpr("kMaxLogTile") == MAX_LOG_TILE
+# kSpanSlots: the slots of a span sorted inside shared memory, by the
+# bytes of a key and its payload together
+_SPAN_CUT, _SPAN_WIDE, _SPAN_NARROW = map(int, re.search(
+    r"kSpanSlots = kSlotBytes<K, V> > (\d+) \? (\d+) : (\d+);",
+    _SRC).groups())
+
+
+def _span_slots(slot):
+    return _SPAN_WIDE if slot > _SPAN_CUT else _SPAN_NARROW
+
+
+def _pass_count(C, slot):
+    """`merge_passes` of the kernel: one per run width _span_slots,
+    twice that, .. below C."""
+    w, n = _span_slots(slot), 0
+    while w < C:
+        w, n = 2 * w, n + 1
+    return n
+
+
+def _merge_path(src, a_off, na, b_off, nb, d):
+    """`merge_path` of the kernel, vectorized: for each search, how many
+    of the first d outputs of merging src[a_off:a_off+na] and
+    src[b_off:b_off+nb] come from a, a first on ties."""
+    lo = np.maximum(d - nb, 0)
+    hi = np.minimum(d, na)
+    while True:
+        act = lo < hi
+        if not act.any():
+            return lo
+        mid = (lo + hi) >> 1
+        ia = np.where(act, a_off + mid, 0)
+        ib = np.where(act, b_off + d - 1 - mid, 0)
+        take = src[ia] <= src[ib]
+        lo = np.where(act & take, mid + 1, lo)
+        hi = np.where(act & ~take, mid, hi)
+
+
+def _skew(j, vt):
+    return j + j // vt
+
+
+def _merge_serial(sk, sv, a0, na, b0, nb, d, vt, n_out, dst, ok, ov, out):
+    """`merge_serial` for many threads at once (flat shared copies sk,
+    sv; a0 .. d one entry a thread): each thread's vt outputs into ok, ov
+    at dst + r where r < n_out, counted in `out`."""
+    i = _merge_path(sk, a0, na, b0, nb, d)
+    j = d - i
+    for r in range(vt):
+        ia = np.where(i < na, a0 + i, 0)
+        ib = np.where(j < nb, b0 + j, 0)
+        take_a = (i < na) & ((j >= nb) | (sk[ia] <= sk[ib]))
+        frm = np.where(take_a, ia, ib)
+        real = r < n_out
+        ok[dst[real] + r] = sk[frm[real]]
+        ov[dst[real] + r] = sv[frm[real]]
+        np.add.at(out, dst[real] + r, 1)
+        i = i + take_a
+        j = j + ~take_a
+
+
+def _register_network(vt):
+    """`sort_registers`: the direction-free bitonic network on vt
+    registers, as (lower, upper) register pairs a stage."""
+    r = np.arange(vt)
+    stages = []
+    s = 2
+    while s <= vt:
+        flip = r ^ (s - 1)
+        stages.append((r[flip > r], flip[flip > r]))
+        j = s // 4
+        while j:
+            stages.append((r[(r & j) == 0], r[(r & j) == 0] | j))
+            j //= 2
+        s *= 2
+    return stages
+
+
+def _sort_spans(keys, vals, slot):
+    """sort_spans in place on (G, C) rows: per span of span_slots, each
+    busy thread's VT slots through the register network (the slots past
+    the span's end loaded as the key type's maximum beside payload -1,
+    which never move), then each level through shared memory; every slot
+    written exactly once a level."""
+    G, C = keys.shape
+    S = _span_slots(slot)
+    vt = S // SPAN_THREADS
+    mx = np.iinfo(keys.dtype).max
+    for row in range(G):
+        for o0 in range(0, C, S):
+            n = min(S, C - o0)
+            sk, sv = keys[row, o0:o0 + n], vals[row, o0:o0 + n]  # views
+            busy = -(-n // vt)
+            rk_ = np.full(busy * vt, mx, keys.dtype)
+            rv_ = np.full(busy * vt, -1, vals.dtype)
+            rk_[:n], rv_[:n] = sk, sv
+            tk, tv = rk_.reshape(busy, vt), rv_.reshape(busy, vt)
+            for lo, hi in _register_network(vt):
+                _apply(tk, tv, lo, hi)
+            assert np.all(rk_[n:] == mx) and np.all(rv_[n:] == -1)
+            sk[:], sv[:] = rk_[:n], rv_[:n]
+            q0 = np.arange(busy) * vt
+            w = vt
+            while w < n:
+                p0 = q0 & ~(2 * w - 1)
+                na = np.minimum(w, n - p0)
+                nb = np.minimum(2 * w, n - p0) - na
+                ok, ov = np.empty_like(sk), np.empty_like(sv)
+                out = np.zeros(n, np.int64)
+                _merge_serial(sk, sv, p0, na, p0 + na, nb, q0 - p0, vt,
+                              np.minimum(vt, n - q0), q0, ok, ov, out)
+                assert np.all(out == 1)
+                sk[:], sv[:] = ok, ov
+                w *= 2
+
+
+def _merge_pass(ik, iv, ok, ov, G, C, w):
+    """One merge pass from (ik, iv) into (ok, ov), flat (G * C), with
+    the kernel's index arithmetic; asserts that every output slot is
+    written exactly once."""
+    spans = -(-C // MERGE_SPAN)
+    b = np.arange(G * spans)
+    row = b // spans
+    o0 = (b - row * spans) * MERGE_SPAN
+    n = np.minimum(MERGE_SPAN, C - o0)
+    p0 = o0 & ~(2 * w - 1)  # the pair: runs of na and nb slots
+    left = C - p0
+    na = np.minimum(left, w)
+    nb = np.minimum(left, 2 * w) - na
+    base = row * C + p0
+    d0 = o0 - p0
+    d1 = d0 + n
+    # the partition launch: one split a span; a span's end is the next
+    # span's start unless it ends its pair
+    parts = _merge_path(ik, base, na, base + na, nb, d0)
+    last = d1 == na + nb
+    nxt = np.minimum(b + 1, b.size - 1)
+    assert np.all(last | (row[nxt] == row) & (p0[nxt] == p0))
+    i0 = parts
+    i1 = np.where(last, na, parts[nxt])
+    # which is where the diagonal of the span's end splits the pair
+    assert np.array_equal(i1, _merge_path(ik, base, na, base + na, nb, d1))
+    la = i1 - i0
+    assert np.all((0 <= la) & (la <= n) & (0 <= i0) & (i1 <= na))
+    # the span's shared slice: a's slots then b's, n in all
+    j = np.arange(MERGE_SPAN)[None, :]
+    src = np.where(j < la[:, None], base[:, None] + i0[:, None] + j,
+                   base[:, None] + na[:, None] + (d0 - i0)[:, None]
+                   + j - la[:, None])
+    real = j < n[:, None]
+    assert np.all(~real | (src >= base[:, None])
+                  & (src < (base + na + nb)[:, None]))  # inside the pair
+    sk = np.where(real, ik[np.where(real, src, 0)], 0).ravel()
+    sv = np.where(real, iv[np.where(real, src, 0)], 0).ravel()
+    # each thread: its diagonal in the slice, then MERGE_VT serial steps
+    t = np.arange(MERGE_THREADS)[None, :]
+    blk = np.arange(b.size)[:, None] * MERGE_SPAN
+    q0 = t * MERGE_VT
+    busy = q0 < n[:, None]
+    la2 = np.broadcast_to(la[:, None], busy.shape)[busy]
+    n2 = np.broadcast_to(n[:, None], busy.shape)[busy]
+    out = np.zeros(G * C, np.int64)
+    _merge_serial(sk, sv, np.broadcast_to(blk, busy.shape)[busy], la2,
+                  np.broadcast_to(blk, busy.shape)[busy] + la2, n2 - la2,
+                  np.broadcast_to(q0, busy.shape)[busy], MERGE_VT,
+                  np.minimum(MERGE_VT, n2 - np.broadcast_to(q0, busy.shape)[busy]),
+                  np.broadcast_to((row * C + o0)[:, None] + q0,
+                                  busy.shape)[busy], ok, ov, out)
+    assert np.all(out == 1)  # every output slot written exactly once
+
+
+def _merge_passes(keys, vals, slot):
+    """The passes of rows whose spans of span_slots are sorted: ping-pong
+    between the rows and a scratch (whose contents start undefined), then
+    the copy home after an odd pass count."""
+    G, C = keys.shape
+    bufs = [(keys.ravel().copy(), vals.ravel().copy()),
+            (np.full(G * C, -77, keys.dtype), np.full(G * C, -77, vals.dtype))]
+    w, m = _span_slots(slot), 0
+    while w < C:
+        (ik, iv), (ok, ov) = bufs[m % 2], bufs[(m + 1) % 2]
+        _merge_pass(ik, iv, ok, ov, G, C, w)
+        w, m = 2 * w, m + 1
+    assert m == _pass_count(C, slot)
+    home = bufs[0]
+    if m % 2:
+        home[0][:], home[1][:] = bufs[1]
+    return home[0].reshape(G, C), home[1].reshape(G, C)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -284,8 +498,7 @@ def test_kernel_schedule_is_the_bitonic_network(log_t, LV):
     """Stage by stage the schedule is the direction-free bitonic network:
     flip(2^L) then strides 2^(L-2) .. 1 for L = 1 .. log_t, every slot
     owned once and paired once per stage (`_stage_pairs` asserts it), home
-    stages inside a warp, column stages inside a thread; the MERGE form is
-    the strides tile/2 .. 1."""
+    stages inside a warp, column stages inside a thread."""
     def names(phases):
         return [st[3] for _, stages in phases for st in stages]
 
@@ -298,13 +511,116 @@ def test_kernel_schedule_is_the_bitonic_network(log_t, LV):
         want += [("flip", L)] + [("stride", b) for b in range(L - 2, -1, -1)]
     assert names(phases) == want
     assert len(want) == log_t * (log_t + 1) // 2
-    if log_t > LOG_WARP:
-        merge = _tile_schedule(log_t, LV, merge=True)
-        for layout, stages in merge:
-            for stage in stages:
-                _stage_pairs(layout, stage, log_t, LV)
-        assert names(merge) == [("stride", b)
-                                for b in range(log_t - 1, -1, -1)]
+
+
+# row lengths past the tile: the sort inside shared memory alone (4097
+# .. 12289, for 12-byte slots; 8193 and 12289 take a pass at 16 bytes),
+# one merge pass at 16385 (the copy home), two at 32769, three at 2^16 + 3
+LONG_SEAMS = [4097, 8191, 8192, 8193, 12289, 16385, 32769, (1 << 16) + 3]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("kd", [np.int32, np.int64])
+@pytest.mark.parametrize("C", LONG_SEAMS)
+def test_merge_path_schedule_sorts_long_rows(C, kd, G, case):
+    """The spans' sort inside shared memory, then the merge passes, block
+    by block and thread by thread (int64 payloads: 12-byte slots beside
+    int32 keys, 16 beside int64): every output slot written once a level
+    and a pass, the rows sorted, every (key, payload) pair kept under
+    distinct payloads, so that a run of equal keys split between threads
+    or blocks is neither lost nor doubled."""
+    LV = 2 if kd == np.int32 else 1
+    keys = _keys((G, C), kd, case, seed=C + G)
+    vals = np.arange(keys.size, dtype=np.int64).reshape(keys.shape)
+    gk, gv, _ = _network(keys, vals, LV)
+    _pairs_equal(gk, gv, np.sort(keys, axis=1),
+                 np.take_along_axis(vals, np.argsort(keys, axis=1), 1))
+
+
+# (C, key bytes, payload bytes, merge passes)
+PASSES = [
+    (1, 8, 4, 0), (4096, 8, 4, 0), (4097, 8, 4, 0), (16384, 8, 4, 0),
+    (16385, 8, 4, 1), (32769, 8, 4, 2), ((1 << 16) + 3, 8, 4, 3),
+    (1 << 22, 8, 4, 8), (1 << 26, 8, 4, 12), (1 << 26, 8, 0, 12),
+    (8193, 8, 8, 1), (16385, 8, 8, 2),
+]
+
+
+@pytest.mark.parametrize("C,kb,vb,passes", PASSES)
+def test_merge_passes(C, kb, vb, passes):
+    """One pass per run width, the span, twice that, .. below C (the
+    whole 2^26-slot dedup row takes 12): after an odd count the rows come
+    home by one copy of the scratch."""
+    assert _pass_count(C, kb + vb) == passes
+
+
+def test_merge_path_ties_take_a_first():
+    """The split of a run of equal keys: a first, so a diagonal inside
+    the run takes every a slot before any b slot."""
+    src = np.array([1, 5, 5, 5, 5, 5, 5, 9], np.int64)  # a = [1, 5, 5, 5]
+    a_off, na, b_off, nb = 0, 4, 4, 4                    # b = [5, 5, 5, 9]
+    got = [int(_merge_path(src, np.array([a_off]), np.array([na]),
+                           np.array([b_off]), np.array([nb]),
+                           np.array([d]))[0]) for d in range(9)]
+    assert got == [0, 1, 2, 3, 4, 4, 4, 4, 4]
+
+
+@pytest.mark.parametrize("word", [4, 8])
+@pytest.mark.parametrize("vt,threads", [
+    (MERGE_VT, MERGE_THREADS), (16, SPAN_THREADS), (32, SPAN_THREADS),
+])
+def test_merge_store_skew_hits_distinct_banks(vt, threads, word):
+    """The registers' trip back to shared memory: thread t writes slot t *
+    vt + r at `skew`, one store a register; the 32 lanes of a warp (two
+    halves of 16 for 8-byte words, as the card serves them) touch
+    distinct banks of 4 bytes, in a merge pass (vt = MERGE_VT) and in
+    sort_spans (vt = span_slots / SPAN_THREADS: 16 or 32)."""
+    lanes = 32 if word == 4 else 16
+    for r in range(vt):
+        for first in range(0, threads, lanes):
+            t = np.arange(first, first + lanes)
+            addr = _skew(t * vt + r, vt) * word
+            banks = {(a // 4 + x) % 32 for a in addr for x in range(word // 4)}
+            assert len(banks) == lanes * word // 4
+
+
+@pytest.mark.parametrize("vt", [2, 4, 8, 16, 32])
+def test_register_network_sorts_and_keeps_padding(vt):
+    """`sort_registers` is a sorting network on vt registers (0-1
+    principle: every 0/1 input comes out sorted), and a padded tail of
+    the key type's maximum stays where it was loaded."""
+    stages = _register_network(vt)
+    bits = (np.arange(1 << min(vt, 16))[:, None] >> np.arange(vt)) & 1
+    if vt > 16:  # 2^32 inputs are too many: a seeded sample
+        bits = np.random.default_rng(vt).integers(0, 2, (1 << 14, vt))
+    k = bits.astype(np.int64)
+    v = np.zeros_like(k)
+    for lo, hi in stages:
+        _apply(k, v, lo, hi)
+    assert np.all(np.diff(k, axis=1) >= 0)
+    mx = np.iinfo(np.int64).max
+    for n in range(1, vt):
+        k = np.full((1, vt), mx, np.int64)
+        k[0, :n] = np.arange(n, 0, -1) % 3
+        v = np.arange(vt, dtype=np.int64)[None, :]
+        for lo, hi in stages:
+            _apply(k, v, lo, hi)
+        assert np.array_equal(v[0, n:], np.arange(n, vt))
+
+
+@pytest.mark.parametrize("slot", [4, 8, 12, 16])
+def test_span_geometry_fits_the_blocks(slot):
+    """A span of sort_spans is longer than a tile and a whole number of
+    its threads' slots and of a merge pass's block spans, so a thread's
+    slots never straddle two runs, nor a block's span two pairs of runs,
+    and its bytes fit the 227 KB of shared memory a block may have."""
+    span = _span_slots(slot)
+    vt = span // SPAN_THREADS
+    assert span > TILE
+    assert span % SPAN_THREADS == 0 and span % MERGE_SPAN == 0
+    # smem_slots: the span, one skew slot every vt, two threads' padding
+    assert (span + span // vt + 2 * vt) * slot <= 227 * 1024
 
 
 @pytest.mark.parametrize("log_t,transposes,wide_stages", [
@@ -372,25 +688,91 @@ def test_sort_rows_rejects_bad_input(bad):
 @pytest.mark.parametrize("vd", [None, torch.int32, torch.int64])
 @pytest.mark.parametrize("kd", [torch.int32, torch.int64])
 def test_sort_rows_kernel_vs_plain_on_card(kd, vd):
-    """The kernel against the plain version, exact, on every case and on
-    a row long enough for the global passes."""
+    """The kernel against the plain version, exact, on every case: the
+    tile path's shapes, a row of 2^18 (four merge passes), the seams of
+    the long rows for one and three rows, and one row of 2^22 on the
+    duplicates case."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
-    for shape in SHAPES + [(1, 1 << 18)]:
-        for case in CASES:
-            nd = np.int32 if kd == torch.int32 else np.int64
-            keys = torch.from_numpy(_keys(shape, nd, case)).cuda()
-            vals = None if vd is None else torch.randint(
-                0, 1 << 30, shape, dtype=vd, device="cuda")
+    nd = np.int32 if kd == torch.int32 else np.int64
+    shapes = (SHAPES + [(1, 1 << 18)]
+              + [(G, C) for C in LONG_SEAMS for G in (1, 3)] + [(1, 1 << 22)])
+    for shape in shapes:
+        for case in CASES + ["duplicates"]:
+            if shape[1] == 1 << 22 and case != "duplicates":
+                continue
+            if case == "duplicates":  # few keys, a payload a slot
+                keys = torch.randint(0, 50, shape, dtype=kd, device="cuda")
+            else:
+                keys = torch.from_numpy(_keys(shape, nd, case)).cuda()
+            if vd is None:
+                vals = None
+            elif case == "duplicates":
+                vals = torch.arange(keys.numel(), dtype=vd,
+                                    device="cuda").reshape(shape)
+            else:
+                vals = torch.randint(0, 1 << 30, shape, dtype=vd,
+                                     device="cuda")
             wk, wv = rk.sort_rows_reference(keys, vals)
             before = rk.sort_rows_cuda.launches
-            gk, gv = rk.sort_rows_cuda(keys.clone(),
-                                       None if vals is None else vals.clone())
+            long0 = rk.sort_rows_cuda.long_launches
+            gk, gv = rk.sort_rows_cuda(
+                keys.clone(), None if vals is None else vals.clone())
             torch.cuda.synchronize()
             assert rk.sort_rows_cuda.launches == before + 1
+            assert (rk.sort_rows_cuda.long_launches
+                    == long0 + (shape[1] > TILE))
             assert torch.equal(gk, wk)
             if vals is not None:
-                assert torch.equal(_vals_by_pair(gk, gv), _vals_by_pair(wk, wv))
+                assert torch.equal(_vals_by_pair(gk, gv),
+                                   _vals_by_pair(wk, wv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [12289, 16385, 32769])
+def test_sort_rows_kernel_scratch_on_card(C):
+    """The merge passes ping-pong through a scratch that the wrapper
+    allocates: after no pass (12289), an odd (16385: one) and an even
+    (32769: two) pass count the caller's own tensors hold the sorted
+    rows, and no other tensor is written (guards allocated around them
+    keep their bytes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    shape = (3, C)
+    guard = [torch.full(shape, -3, dtype=torch.int64, device="cuda")
+             for _ in range(2)]
+    keys = torch.from_numpy(_keys(shape, np.int64, "mixed")).cuda()
+    vals = torch.arange(keys.numel(), dtype=torch.int32,
+                        device="cuda").reshape(shape)
+    guard += [torch.full(shape, -3, dtype=torch.int64, device="cuda")
+              for _ in range(2)]
+    wk, wv = rk.sort_rows_reference(keys, vals)
+    ptrs = keys.data_ptr(), vals.data_ptr()
+    gk, gv = rk.sort_rows_cuda(keys, vals)
+    torch.cuda.synchronize()
+    assert gk is keys and gv is vals
+    assert (keys.data_ptr(), vals.data_ptr()) == ptrs
+    assert torch.equal(keys, wk)
+    assert torch.equal(_vals_by_pair(keys, vals), _vals_by_pair(wk, wv))
+    assert all(bool((g == -3).all()) for g in guard)
+    assert rk.sort_plan(3, C, 8, 4).passes == {12289: 0, 16385: 1,
+                                               32769: 2}[C]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,kb,vb,passes", PASSES)
+def test_sort_plan_on_card(C, kb, vb, passes):
+    """The library's plan (`fk_sort_rows_scratch`) is the replay's: the
+    same merge passes, the splits of a block span each a pass takes, the
+    merge sort on rows longer than a tile, and a refusal of sizes the
+    kernel has no form for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    G = 3
+    assert rk.sort_plan(G, C, kb, vb) == (
+        C > TILE, passes, G * -(-C // MERGE_SPAN) if passes else 0)
+    with pytest.raises(ValueError):
+        rk.sort_plan(G, C, kb, 2)
 
 
 def _vals_by_pair(keys, vals):
