@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py [--seed N] [--profile]
-                          [--only rowsort|window|stream|filter|tools|mesh|spill]
+                          [--only rowsort|window|stream|filter|tools|mesh|
+                                  spill|installed]
                           [--against DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
@@ -100,12 +101,13 @@ final ok-line is not printed.
      bases with N runs at k=8 and k=21 --canonical, equal byte for byte to
      the same run with --device cpu; `count --per-input` over three
      inputs, each file equal to a single `count` of that input
- 11. the restartable stream, over a seeded genome of 128 Mbase of its
-     own in batches of 512 x 65536 (five batches, as the main paths'
-     genome makes at 1024 rows, at half the bytes), every output held by
-     sha256 to a `count` run of the same flags over it.  Dense: `stream
-     -k 8 --checkpoint D --checkpoint-every 2` by the default step (K2
-     once a batch) and by the two-stage step (K1 once a batch).  Sparse:
+ 11. the restartable stream, over a seeded genome of 64 Mbase of its
+     own in batches of 256 x 65536 (five batches, as the main paths'
+     genome makes at 1024 rows, at a quarter of the bytes), every output
+     held by sha256 to a `count` run of the same flags over it.
+     Dense: `stream -k 8 --checkpoint D --checkpoint-every 2` by the
+     default step (K2 once a batch) and by the two-stage step (K1 once a
+     batch).  Sparse:
      `stream -k 21 --canonical --checkpoint D --checkpoint-every 2`: every
      row sort a K3 launch, four of them for its three checkpoints; the
      file size of each checkpoint, and from `--stats json` the seconds of
@@ -114,8 +116,8 @@ final ok-line is not printed.
      its first `latest.json` exists and run again to the end (with the
      default --checkpoint-every: the final checkpoint alone): same bytes,
      and the `--stats json` totals of the uninterrupted run.  Spill:
-     `count -k 21 --canonical --spill S --sparse-capacity 2^24
-     --sparse-compact-entries 2^25` writes three runs of ~0.5 GB or more
+     `count -k 21 --canonical --spill S --sparse-capacity 2^23
+     --sparse-compact-entries 2^24` writes three runs of ~0.25 GB or more
      and merges them: same bytes, the run files gone, with the seconds of
      each spill, the bytes spilled and the seconds of the residual pull
      and of the merge; then `stream` with both --spill and --checkpoint,
@@ -144,8 +146,8 @@ final ok-line is not printed.
      engine's prefilter)
  13. the spectrum tools over a cohort (the Mash `sketch`/`dist` and
      kmtricks matrix workload of a small isolate collection): 8 seeded
-     samples of 4,000,000 bases, one ancestor with 0.5-5% of its bases
-     substituted in each and four N gaps, 32 Mbase in all.  On cuda, in
+     samples of 2,000,000 bases, one ancestor with 0.5-5% of its bases
+     substituted in each and four N gaps, 16 Mbase in all.  On cuda, in
      this process, each timed (bases/s): `count --per-input -k 21
      --canonical`, `sketch --per-input -k 21 --canonical -s 1000`,
      `histo -k 21 --canonical` and `histo -k 8` (K2) of one sample,
@@ -193,6 +195,22 @@ final ok-line is not printed.
      both processes on this card) whose process 0 output is sha256-equal
      to one process's `count`; and `count -k 8 --profile DIR`, whose
      Chrome trace names K2's kernel (window_hist)
+ 15. the installed package (run after phase 8, on its genome): a wheel
+     built by `pip wheel --no-build-isolation --no-deps --no-index` from a
+     copy of this checkout (with $CC, then, if that fails, with cc, as
+     the port builds its C encoder), installed by `pip install --target`
+     into a temporary directory, and a `python -P` child run from there
+     with PYTHONPATH set to that directory alone and FINDKMER_TORCH_CACHE
+     set to an empty one: it builds the kernels from the installed
+     csrc/ and the C encoder from the installed `_native/encode.c` into
+     that cache (seconds of each), then counts the 256 Mbase genome at
+     1024 x 65536 on cuda with `count -k 8` (K2 once a batch) and `count
+     -k 21 --canonical` (K3 on every row sort), each output sha256-equal
+     to the checkout's run of phases 6 and 7, with its kernel launches
+     (counted from 0 in the child) equal to theirs, `--stats json`
+     naming the card and the C encoder, the package, both libraries and
+     the cache under the temporary directories, and nothing of the JAX
+     package imported
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -207,18 +225,21 @@ phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
 the quick check of an edit to those kernels; with --only stream phases
 1, 2 and 11; with --only filter phases 1, 2 and 12; with --only tools
 phases 1, 2 and 13; with --only mesh phases 1, 2 and 14; with --only
-spill [--against DIR] phases 1 and 2, then phase 11's `count --spill` as
-a process of its own from this checkout and from DIR (another checkout
+installed phases 1, 2 and 15 (the checkout's own two counts of the genome
+made first, to hold the installed ones to); with --only spill [--against
+DIR] phases 1 and 2, then phase 11's `count --spill` as a process of its
+own from this checkout and from DIR (another checkout
 of the port, such as the parent commit unpacked into build/), in turn,
 with each run's wall, dispatch seconds and peak device memory, the
-outputs sha256-equal.  Each of the seven prints no summary and no
+outputs sha256-equal.  Each of the eight prints no summary and no
 ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
 launches on the main paths: the `count` runs, each run that phase 11
 makes in this process, the filter runs of phase 12, which launch none,
-the runs on the card of phase 13 and the mesh runs of phase 14
-(`launches_by_path`), each counted from 0, and for K3 apart those on
+the runs on the card of phase 13, the mesh runs of phase 14 and the
+installed package's runs of phase 15 (`launches_by_path`), each counted
+from 0, and for K3 apart those on
 rows longer than a tile (`long_launches_by_path`: the dedups of the spill
 paths, none in a plain `count` or `stream`); its ms beside the plain
 version's, the one
@@ -1056,6 +1077,11 @@ class _LongRows:
 
 
 SORT_LONG = _LongRows()
+# each kernel's launch counter, by its name in the summary line
+WRAPPERS = {"histogram_cuda": histogram_cuda,
+            "fused_window_histogram_cuda": fused_window_histogram_cuda,
+            "sort_rows_cuda": sort_rows_cuda,
+            "sort_rows_cuda_long": SORT_LONG}
 
 
 class _RowSortTap:
@@ -1236,19 +1262,19 @@ def phase_sparse_device_step(fasta: str) -> None:
     torch.cuda.empty_cache()
 
 
-# phase 11 runs on a genome of its own, half the main paths' in bases and
-# in batch rows: the same five batches and checkpoint schedule, and half
-# the bytes for zlib, which is nearly all of the phase
-STREAM_GENOME_BASES = GENOME_BASES // 2
-STREAM_GEOM = ["--batch-rows", "512", "--chunk-len", "65536", "--device",
+# phase 11 runs on a genome of its own, a quarter of the main paths' in
+# bases and in batch rows: the same five batches and checkpoint schedule,
+# and a quarter of the bytes for zlib, which is nearly all of the phase
+STREAM_GENOME_BASES = GENOME_BASES // 4
+STREAM_GEOM = ["--batch-rows", "256", "--chunk-len", "65536", "--device",
                "cuda"]
 STREAM_SPARSE = ["-k", "21", "--canonical"]
-# three runs of ~33 M entries (~0.5 GB) or more: a compaction a batch, and
-# a store of one batch's distinct 21-mers (~33 M) is over the capacity
+# three runs of ~16 M entries (~0.25 GB) or more: a compaction a batch,
+# and a store of one batch's distinct 21-mers (~16 M) is over the capacity
+SPILL_FLAGS = ["--sparse-capacity", str(1 << 23),
+               "--sparse-compact-entries", str(1 << 24)]
 # row sorts of the sparse stream over the seeded genome (phase_stream)
 SPARSE_STREAM_SORTS = 4
-SPILL_FLAGS = ["--sparse-capacity", str(1 << 24),
-               "--sparse-compact-entries", str(1 << 25)]
 STAT_TOTALS = ("records", "bases", "valid_bases", "batches", "rows",
                "h2d_bytes")
 
@@ -1360,19 +1386,15 @@ def phase_stream(tmp: str, seed: int) -> dict:
         say("stream_reference_count", run=name, sha256=want[name],
             bases=STREAM_GENOME_BASES, wall_s=stats["wall_s"],
             batches=stats["batches"])
-    wrappers = {"histogram_cuda": histogram_cuda,
-                "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                "sort_rows_cuda": sort_rows_cuda,
-                "sort_rows_cuda_long": SORT_LONG}
-    by_run = {name: {} for name in wrappers}
+    by_run = {name: {} for name in WRAPPERS}
 
     def counted_run(run: str, *cli, **kw):
         """run_cli with every kernel's count set to 0 just before and read
         just after -> (stats, wall, {kernel: launches})."""
-        for fn in wrappers.values():
+        for fn in WRAPPERS.values():
             fn.launches = 0
         stats, wall = run_cli(*cli, **kw)
-        launched = {name: fn.launches for name, fn in wrappers.items()}
+        launched = {name: fn.launches for name, fn in WRAPPERS.items()}
         for name, n in launched.items():
             by_run[name][run] = n
         return stats, wall, launched
@@ -1450,7 +1472,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
 
     # 3. kill and resume, each run a process of its own
     # (the resumed run takes the default --checkpoint-every: it writes the
-    # final checkpoint alone, each being ~100 s of zlib at this size)
+    # final checkpoint alone, each being nearly all zlib)
     resumed = _kill_then_resume(
         stream_args(STREAM_SPARSE), stream_args(STREAM_SPARSE, every=()),
         lambda: os.path.exists(os.path.join(ck, "latest.json")),
@@ -1831,6 +1853,7 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
                     f"k={k} {extra}: the {route} output differs from K2's")
             run = {"k": k, "args": extra, "route": route, "hist": hist,
                    "pass": i // len(DENSE_ROUTES),
+                   "sha256": hashlib.sha256(got).hexdigest(),
                    "batches": n, "k1_launches": k1, "k2_launches": k2,
                    "bases": stats["bases"], "cli_wall_s": stats["wall_s"],
                    "bases_per_s": stats["bases_per_s"], "wall_s": wall,
@@ -1844,6 +1867,195 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
         raise AssertionError("the dense path launched the row sort")
     return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
             runs)
+
+
+# phase 15: the installed package.  The runs it makes on the main paths'
+# genome, each held to the checkout's run of the same flags
+INSTALLED_RUNS = (("k8", ["-k", "8"]),
+                  ("k21_canonical", ["-k", "21", "--canonical"]))
+INSTALLED_GEOM = ["--batch-rows", str(PROD_SHAPE[0]), "--chunk-len",
+                  str(PROD_SHAPE[1]), "--device", "cuda"]
+# what `pip wheel` of a checkout does not read: the top-level build
+# outputs and the repository's history, and caches at any depth
+NOT_PACKAGED = {".git", "build"}
+NEVER_PACKAGED = {"__pycache__", ".pytest_cache", ".hypothesis"}
+PIP = [sys.executable, "-m", "pip", "--disable-pip-version-check",
+       "--no-input"]
+# the child of phase 15, run from the installed tree: builds the kernels
+# and the C encoder into the empty cache, then counts; one JSON line
+_INSTALLED_CHILD = """
+import contextlib, io, json, sys, time
+t0 = time.perf_counter()
+import findkmer_torch
+from findkmer_torch import cli, pipeline
+from findkmer_torch.io import native
+from findkmer_torch.ops.cuda import _build
+from findkmer_torch.ops.cuda.histogram_kernel import histogram_cuda
+from findkmer_torch.ops.cuda.rowsort_kernel import sort_rows_cuda
+from findkmer_torch.ops.cuda.window_histogram_kernel import (
+    fused_window_histogram_cuda)
+import_s = time.perf_counter() - t0
+fasta, out, runs, geom = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+_build.load()
+kernels_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+encoder = pipeline.host_encoder()
+encoder_s = time.perf_counter() - t0
+report = {"package": findkmer_torch.__file__, "csrc": str(_build.CSRC),
+          "sources": [p.name for p in _build.sources()],
+          "library": str(_build.library_path()),
+          "native_source": str(native.SOURCE),
+          "native_lib": str(native.lib_path()), "host_encoder": encoder,
+          "import_s": import_s, "kernels_build_s": kernels_s,
+          "encoder_build_s": encoder_s, "runs": {}}
+for name, flags in runs:
+    histogram_cuda.launches = fused_window_histogram_cuda.launches = 0
+    sort_rows_cuda.launches = sort_rows_cuda.long_launches = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["count", "-i", fasta, "-o", f"{out}.{name}.tsv",
+                       "--stats", "json", *flags, *geom])
+    wall = time.perf_counter() - t0
+    if rc:
+        raise SystemExit(f"count {flags} exited {rc}: {err.getvalue()}")
+    report["runs"][name] = {
+        "stats": json.loads(err.getvalue().strip().splitlines()[-1]),
+        "wall_s": wall, "launches": {
+            "histogram_cuda": histogram_cuda.launches,
+            "fused_window_histogram_cuda":
+                fused_window_histogram_cuda.launches,
+            "sort_rows_cuda": sort_rows_cuda.launches,
+            "sort_rows_cuda_long": sort_rows_cuda.long_launches}}
+report["jax_package"] = "findkmer_tpu" in sys.modules
+print(json.dumps(report))
+"""
+
+
+def _not_packaged(root: str, names: list) -> list:
+    top = os.path.abspath(root) == REPO
+    return [n for n in names if n in NEVER_PACKAGED or n.endswith(".egg-info")
+            or (top and n in NOT_PACKAGED)]
+
+
+def _pip(args: list, cwd: str) -> float:
+    """pip with $CC, then, if that fails and $CC is another compiler, once
+    more with cc: the rule of the port's own C build (a $CC without
+    OpenMP cannot link the JAX package's encoder, which the wheel holds
+    too).  -> seconds."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    res = subprocess.run(PIP + args, cwd=cwd, env=env, capture_output=True,
+                         text=True)
+    if res.returncode and env.get("CC", "cc") != "cc":
+        shutil.rmtree(os.path.join(cwd, "build"), ignore_errors=True)
+        res = subprocess.run(PIP + args, cwd=cwd, env={**env, "CC": "cc"},
+                             capture_output=True, text=True)
+    if res.returncode:
+        raise AssertionError(f"pip {args[0]} exited {res.returncode}: "
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def _counted(argv: list) -> tuple:
+    """run_cli with every kernel's count set to 0 just before and read
+    just after -> (stats, {kernel: launches})."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    stats, _ = run_cli(argv)
+    return stats, {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def checkout_counts(tmp: str, fasta: str) -> dict:
+    """This checkout's own runs of INSTALLED_RUNS over `fasta` (phase 15's
+    yardstick where phases 6 and 7 did not run) -> {run: {sha256,
+    launches}}."""
+    want = {}
+    for name, flags in INSTALLED_RUNS:
+        out = os.path.join(tmp, f"checkout_{name}.tsv")
+        _, launched = _counted(["count", "-i", fasta, "-o", out]
+                               + flags + INSTALLED_GEOM)
+        want[name] = {"sha256": _sha256_and_delete(out)[0],
+                      "launches": launched}
+        say("installed_yardstick", run=name, **want[name])
+    return want
+
+
+def _under(path: str, root: str) -> bool:
+    return Path(path).resolve().is_relative_to(Path(root).resolve())
+
+
+def phase_installed(tmp: str, fasta: str, want: dict, smi: str) -> dict:
+    """The installed package (phase 15 of the module docstring): `want` is
+    {run: {sha256, launches}} of this checkout's runs of INSTALLED_RUNS.
+    -> {kernel: its launches in the installed runs}, counted from 0 in the
+    child."""
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "installed")
+    src, target = os.path.join(d, "src"), os.path.join(d, "target")
+    cache, out = os.path.join(d, "cache"), os.path.join(d, "count")
+    t0 = time.perf_counter()
+    shutil.copytree(REPO, src, ignore=_not_packaged, symlinks=True)
+    copy_s = time.perf_counter() - t0
+    wheel_s = _pip(["wheel", "--no-build-isolation", "--no-deps",
+                    "--no-index", "--no-cache-dir", "-q", "-w",
+                    os.path.join(d, "wheel"), src], src)
+    (wheel,) = Path(d, "wheel").glob("*.whl")
+    install_s = _pip(["install", "--no-deps", "--no-index", "--no-cache-dir",
+                      "-q", "--target", target, str(wheel)], d)
+    shutil.rmtree(src)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "FINDKMER_TORCH_CACHE")}
+    env.update(PYTHONPATH=target, FINDKMER_TORCH_CACHE=cache)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-P", "-c", _INSTALLED_CHILD, json.dumps(
+            [fasta, out, INSTALLED_RUNS, INSTALLED_GEOM])],
+        cwd=d, env=env, capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"installed child exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    rep = json.loads(res.stdout.strip().splitlines()[-1])
+    where = {key: rep[key] for key in ("package", "csrc", "library",
+                                       "native_source", "native_lib")}
+    roots = {"package": target, "csrc": target, "native_source": target,
+             "library": os.path.join(cache, "kernels"),
+             "native_lib": os.path.join(cache, "native")}
+    wrong = {key: p for key, p in where.items() if not _under(p, roots[key])}
+    if (wrong or rep["jax_package"] or rep["host_encoder"] != "native"
+            or rep["sources"] != [p.name for p in _build.sources()]):
+        raise AssertionError(f"installed child: outside its tree {wrong}, "
+                             f"report {rep}")
+    launched = dict.fromkeys(WRAPPERS, 0)
+    card = torch.cuda.get_device_name(0)
+    for name, _ in INSTALLED_RUNS:
+        run = rep["runs"][name]
+        stats = run["stats"]
+        digest, size = _sha256_and_delete(f"{out}.{name}.tsv")
+        if (digest != want[name]["sha256"]
+                or run["launches"] != want[name]["launches"]
+                or stats["device"] != card
+                or stats["host_encoder"] != "native"):
+            raise AssertionError(
+                f"installed {name}: sha256 {digest}, launches "
+                f"{run['launches']}, device {stats['device']}, encoder "
+                f"{stats['host_encoder']}; the checkout's {want[name]}")
+        for kernel, n in run["launches"].items():
+            launched[kernel] += n
+        say("installed_run", run=name, sha256=digest, out_bytes=size,
+            identical_to_checkout=True, launches=run["launches"],
+            device=stats["device"], host_encoder=stats["host_encoder"],
+            batches=stats["batches"], bases_per_s=stats["bases_per_s"],
+            wall_s=run["wall_s"])
+    shutil.rmtree(d)
+    say("installed", **where, wheel=wheel.name, copy_s=copy_s,
+        wheel_s=wheel_s, install_s=install_s, child_s=child_s,
+        import_s=rep["import_s"], kernels_build_s=rep["kernels_build_s"],
+        encoder_build_s=rep["encoder_build_s"], launches=launched,
+        card=smi, seconds=time.perf_counter() - t_phase)
+    return launched
 
 
 def phase_oracle(tmp: str) -> None:
@@ -2179,11 +2391,7 @@ def phase_filter(tmp: str, seed: int) -> dict:
         ref_bases=FILTER_REF_BASES,
         bytes={name: os.path.getsize(path) for name, path in p.items()},
         spectrum_bytes={k: os.path.getsize(v) for k, v in spec.items()})
-    wrappers = {"histogram_cuda": histogram_cuda,
-                "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                "sort_rows_cuda": sort_rows_cuda,
-                "sort_rows_cuda_long": SORT_LONG}
-    for fn in wrappers.values():
+    for fn in WRAPPERS.values():
         fn.launches = 0
     out1 = os.path.join(tmp, "kept.fq")
     pair_outs = [os.path.join(tmp, f"kept{i}.fq") for i in (1, 2)]
@@ -2239,7 +2447,7 @@ def phase_filter(tmp: str, seed: int) -> dict:
                                                     / r["wall_s"])
                 say("filter_run", **run, identical_to_host=True)
                 results.append(run)
-    launched = {name: fn.launches for name, fn in wrappers.items()}
+    launched = {name: fn.launches for name, fn in WRAPPERS.items()}
     if any(launched.values()):
         raise AssertionError(f"the filter path launched {launched}")
     step = phase_filter_step(spec[21], staged)
@@ -2254,11 +2462,11 @@ def phase_filter(tmp: str, seed: int) -> dict:
 
 
 # phase 13: a small isolate collection (the Mash `sketch`/`dist` and
-# kmtricks matrix workload): 8 samples of one 4 Mbase ancestor, each with
-# its own share of substitutions.  4,000,000 bases, not 4 MiB: a sample's
-# distinct canonical 21-mers must stay under the 2^22 store of `sketch -k`
-# (`api.count`, whose capacity is not sized from its input)
-COHORT_BASES = 4_000_000
+# kmtricks matrix workload): 8 samples of one 2 Mbase ancestor, each with
+# its own share of substitutions.  A sample's distinct canonical 21-mers
+# must stay under the 2^22 store of `sketch -k` (`api.count`, whose
+# capacity is not sized from its input)
+COHORT_BASES = 2_000_000
 COHORT_RATES = tuple(float(r) for r in np.linspace(0.005, 0.05, 8))
 COHORT_K = ["-k", "21", "--canonical"]
 SKETCH_S = "1000"
@@ -2369,10 +2577,6 @@ def phase_tools(tmp: str, seed: int) -> dict:
         "expr_sum.tsv", "expr_min.tsv", "expr_counters.tsv",
         "expr_kmers.tsv", "sorted1.tsv", "skspec")}
     os.makedirs(o["skspec"])
-    wrappers = {"histogram_cuda": histogram_cuda,
-                "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                "sort_rows_cuda": sort_rows_cuda,
-                "sort_rows_cuda_long": SORT_LONG}
     counting = []
 
     def on_card(name: str, argv: list, n_bases: int) -> tuple:
@@ -2388,7 +2592,7 @@ def phase_tools(tmp: str, seed: int) -> dict:
 
     s1, s2 = per[0], per[1]
     e12 = ["-i", f"s1={s1}", f"s2={s2}"]
-    for fn in wrappers.values():
+    for fn in WRAPPERS.values():
         fn.launches = 0
     with _RowSortTap() as sorts, \
             _Tap(cli, "_count_inputs_to_files", lambda *a: {}) as counts_t, \
@@ -2495,7 +2699,7 @@ def phase_tools(tmp: str, seed: int) -> dict:
                 rc = cli.main(argv)
                 host_runs[name] = {"rc": rc,
                                    "seconds": time.perf_counter() - t0}
-        launched = {name: fn.launches for name, fn in wrappers.items()}
+        launched = {name: fn.launches for name, fn in WRAPPERS.items()}
         row_sorts = sorts.calls
     say("tools_matrix_k", wall_s=matrix_wall,
         count_s=sum(c["seconds"] for c in counts_t.calls),
@@ -2583,10 +2787,6 @@ MESH_SHARDS = (2, 4)
 # the spill leg's capacity: far below a shard's ~33 M distinct k=21 codes
 MESH_SPILL_CAPACITY = 1 << 20
 COORD_BASES = 32 << 20
-MESH_WRAPPERS = {"histogram_cuda": histogram_cuda,
-                 "fused_window_histogram_cuda": fused_window_histogram_cuda,
-                 "sort_rows_cuda": sort_rows_cuda,
-                 "sort_rows_cuda_long": SORT_LONG}
 
 
 def _sha256_of_cli(args, out: str) -> tuple:
@@ -2735,7 +2935,7 @@ def phase_mesh(tmp: str, seed: int) -> dict:
         batches=len(run.batches(run.leg_config("psum", 2))))
     legs = []
     with _RowSortTap() as tap:
-        for w in MESH_WRAPPERS.values():
+        for w in WRAPPERS.values():
             w.launches = 0
         for n in MESH_SHARDS:
             mesh = [dev] * n
@@ -2745,7 +2945,7 @@ def phase_mesh(tmp: str, seed: int) -> dict:
                            report=lambda rec: say("mesh_leg", **rec))
             legs.extend(recs.values())
             torch.cuda.empty_cache()
-        launched = {name: w.launches for name, w in MESH_WRAPPERS.items()}
+        launched = {name: w.launches for name, w in WRAPPERS.items()}
         sorts = tap.calls
     # the spill leg dedups its shards' stores as long rows
     if (launched["fused_window_histogram_cuda"] == 0 or sorts == 0
@@ -2779,14 +2979,15 @@ def main() -> int:
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
     ap.add_argument("--only", choices=["rowsort", "window", "stream",
-                                       "filter", "tools", "mesh", "spill"],
+                                       "filter", "tools", "mesh", "spill",
+                                       "installed"],
                     help="run only the row sort's phases (K3), only the "
                          "histogram kernels' (K1 and K2), only the "
                          "restartable stream's, only read filtering's, "
-                         "only the spectrum tools', only the mesh's, or "
-                         "only the `count --spill` A/B (--against), and "
-                         "stop: no summary, no ok-line; the quick check of "
-                         "an edit")
+                         "only the spectrum tools', only the mesh's, only "
+                         "the `count --spill` A/B (--against), or only the "
+                         "installed package's, and stop: no summary, no "
+                         "ok-line; the quick check of an edit")
     ap.add_argument("--against", metavar="DIR",
                     help="with --only spill: another checkout of the port "
                          "(e.g. the parent commit) whose `count --spill` "
@@ -2821,6 +3022,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_spill_ab(tmp, args.seed, args.against)
         return 0
+    if args.only == "installed":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            fasta = phase_genome(tmp, args.seed)
+            phase_installed(tmp, fasta, checkout_counts(tmp, fasta), smi)
+        return 0
     if args.only == "window":
         phase_ptxas("histogram.cu")
         phase_ptxas("window_histogram.cu")
@@ -2842,6 +3048,19 @@ def main() -> int:
         sort_launches, long_launches, sparse_runs = phase_sparse_main_path(
             tmp, fasta)
         phase_sparse_device_step(fasta)
+        dense8 = next(r for r in runs if r["k"] == 8 and not r["args"]
+                      and r["route"] == "fused")
+        sparse21 = next(r for r in sparse_runs if r["k"] == 21
+                        and r["row_sort"] == "auto")
+        installed_launches = phase_installed(tmp, fasta, {
+            "k8": {"sha256": dense8["sha256"], "launches": {
+                "histogram_cuda": dense8["k1_launches"],
+                "fused_window_histogram_cuda": dense8["k2_launches"],
+                "sort_rows_cuda": 0, "sort_rows_cuda_long": 0}},
+            "k21_canonical": {"sha256": sparse21["sha256"], "launches": {
+                "histogram_cuda": 0, "fused_window_histogram_cuda": 0,
+                "sort_rows_cuda": sparse21["launches"],
+                "sort_rows_cuda_long": 0}}}, smi)
         os.unlink(fasta)
         phase_oracle(tmp)
         stream_launches = phase_stream(tmp, args.seed)
@@ -2861,11 +3080,12 @@ def main() -> int:
 
     def launches_of(name: str, count: int) -> dict:
         """The `count` paths' launches, each stream-phase run's own, the
-        filter runs' (none), the spectrum tools' (K2 and K3) and the
-        mesh's (K2 and K3)."""
+        filter runs' (none), the spectrum tools' (K2 and K3), the mesh's
+        (K2 and K3) and the installed package's (K2 and K3)."""
         by_run = {**stream_launches[name], "filter": filter_launches[name],
                   "tools": tools_launches[name],
-                  "mesh": mesh_launches[name]}
+                  "mesh": mesh_launches[name],
+                  "installed": installed_launches[name]}
         return {"launches": count + sum(by_run.values()),
                 "launches_by_path": {"count": count, **by_run}}
 

@@ -4,9 +4,10 @@ A second package beside `findkmer_tpu/`, which stays the reference it is
 held against.  The port imports `torch`, never `jax`, and nothing of
 `findkmer_tpu`: it keeps its own copy of the host layer it needs
 (`config`, `io`, `output`, `utils`, the loader of the C host encoder,
-which compiles the repository's `src/native/encode.c` into the port's own
-build directory).  Only the tests import both packages, to hold each copy
-to its original.
+which compiles `_native/encode.c`, the package's copy of the
+repository's `src/native/encode.c`, into the port's own build cache,
+`_native.cache_dir`).  Only the tests import both packages, to hold each
+copy to its original.
 
 What runs today on one device, for any k up to 31 (a dense 4^k table for
 k <= 10, k <= 15 with `--table-mode direct`; the sparse sorted-run store
@@ -31,11 +32,13 @@ first use: the window-code histogram K1 (`csrc/histogram.cu`, wrapped by
 `ops/cuda/histogram_kernel.py`), the fused window histogram K2 of the
 dense step (`csrc/window_histogram.cu`,
 `ops/cuda/window_histogram_kernel.py`) and the store's row sort K3
-(`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`).
+(`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`).  The sources ship in
+the package, so an installed tree builds them too.
 
 Importing the package stays cheap: no torch import here.
 """
 
+from findkmer_torch.version import __version__
 from findkmer_torch.config import Config
 
 
@@ -55,4 +58,4 @@ def __getattr__(name):
 
 __all__ = ["Config", "count", "count_per_record", "count_text",
            "filter_reads", "stream_count", "Spectrum", "sketch_sample",
-           "similarity", "matrix", "expr"]
+           "similarity", "matrix", "expr", "__version__"]

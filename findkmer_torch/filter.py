@@ -356,14 +356,14 @@ def _records_with_raw(path, fmt: str) -> Iterator[Tuple[bytes, bytes]]:
 
     FASTQ: strict 4-line groups, quality preserved verbatim; FASTA:
     records re-emitted as '>header\\nseq\\n' (one line).  SAM/BAM is
-    refused with a ValueError: its records cannot be re-emitted
-    verbatim."""
+    refused as the reference refuses it, with SystemExit (exit 1): its
+    records cannot be re-emitted verbatim."""
     if fmt == "auto":
         fmt = sniff_format(path)
     if fmt in ("sam", "bam"):
-        raise ValueError(
-            "filter reads FASTA/FASTQ only (SAM/BAM records cannot be "
-            "re-emitted verbatim); convert first"
+        raise SystemExit(
+            "findkmer filter reads FASTA/FASTQ only (SAM/BAM records "
+            "cannot be re-emitted verbatim); convert first"
         )
     if fmt == "fastq":
         yield from _fastq_records_block(path)

@@ -1,18 +1,22 @@
-"""ctypes loader for the native C encoder (src/native/encode.c).
+"""ctypes loader for the native C encoder (`_native/encode.c`).
 
 The port's copy of `findkmer_tpu/io/native.py`, with every entry point
-of the original.  It compiles the repository's C source
-`src/native/encode.c` (read, never edited) at first use into the port's
-own build directory, `build/torch_native/`, under a name that carries a
-hash of the source: the JAX package builds the same source into its own
-directories, and neither package can load a library the other built from
-another version of the source.
+of the original.  It compiles the package's own copy of the C source,
+`findkmer_torch/_native/encode.c` (byte-equal to the repository's
+`src/native/encode.c`, and shipped in the wheel), at first use into
+`_native.cache_dir("native")`: `build/torch_native/` in a source
+checkout, a user cache once installed.  The name carries a hash of the
+source and flags: the JAX package builds the same source into its own
+directories (and ships its own library, which the port never loads), and
+neither package can load a library the other built from another version
+of the source.
 
 The build runs `$CC` (default `cc`); if that fails and `$CC` names another
 compiler, it runs once more with `cc` (a `$CC` that cannot link OpenMP
 fails the first build).  The library is optional: where no compiler
 works, `available()` is False and io/encode.py and the pipeline fall back
-to numpy, with the same output.  FINDKMER_AUTOBUILD=0 turns building off.
+to numpy, with the same output; a cache that cannot be written is an
+error (`_native.CacheError`).  FINDKMER_AUTOBUILD=0 turns building off.
 `python -m findkmer_torch.io.native` builds and reports.
 """
 
@@ -29,9 +33,10 @@ from typing import Optional
 
 import numpy as np
 
-_REPO_ROOT = Path(__file__).resolve().parents[2]
-SOURCE = _REPO_ROOT / "src" / "native" / "encode.c"
-BUILD_DIR = _REPO_ROOT / "build" / "torch_native"
+from findkmer_torch import _native
+
+SOURCE = _native.ENCODE_C
+BUILD_DIR = _native.cache_dir("native")
 CFLAGS = ("-O3", "-march=native", "-std=c17", "-fPIC", "-fopenmp", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,14 +72,12 @@ def _compile(cc: str, out: Path, quiet: bool) -> bool:
 def build(quiet: bool = True) -> bool:
     """Compile the shared library into BUILD_DIR: with $CC (default cc),
     then, if that fails and $CC is another compiler, once more with cc.
-    Returns True on success."""
+    Returns True on success; raises _native.CacheError where BUILD_DIR
+    cannot be written."""
     if not SOURCE.exists():
         return False
     out = lib_path()
-    try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    except OSError:
-        return False
+    _native.ensure_dir(BUILD_DIR)
     cc = os.environ.get("CC") or "cc"
     if _compile(cc, out, quiet):
         return True
@@ -85,11 +88,11 @@ def _load() -> Optional[ctypes.CDLL]:
     global _lib, _load_attempted
     if _load_attempted:
         return _lib
-    _load_attempted = True
     path = lib_path()
     if (not path.exists()
             and os.environ.get("FINDKMER_AUTOBUILD", "1") == "1"):
-        build(quiet=True)
+        build(quiet=True)  # an unwritable cache raises, every time
+    _load_attempted = True
     if not path.exists():
         return None
     try:

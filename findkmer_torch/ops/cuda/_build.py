@@ -7,16 +7,22 @@ process (all started together), then linked:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -c -o <tmp>/<name>.o findkmer_torch/csrc/<name>.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
-         -o build/torch_kernels/libfindkmer_torch_<key>.so <tmp>/*.o
+         -o <cache>/libfindkmer_torch_<key>.so <tmp>/*.o
 
-The sources include no PyTorch header, so the build takes seconds.  The
-library name carries a hash of the sources and flags: an edited source
-builds anew, an unchanged one is loaded as built.  The build writes a
-temporary file and renames it into place, so two processes building at
-once cannot load a half-written library.
+The sources ship inside the package (`MANIFEST.in`), so an installed
+tree builds them as a checkout does.  `<cache>` is
+`_native.cache_dir("kernels")`: `build/torch_kernels/` in a source
+checkout, `$FINDKMER_TORCH_CACHE/kernels` or the user's cache
+(`~/.cache/findkmer_torch/kernels`) otherwise.  The sources include no
+PyTorch header, so the build takes seconds.  The library name carries a
+hash of the sources and flags: an edited source builds anew, an unchanged
+one is loaded as built.  The build writes a temporary file and renames it
+into place, so two processes building at once (into one user cache, say)
+cannot load a half-written library.
 
-A missing nvcc or a failed build raises with nvcc's own message.  There is
-no fallback: the kernels' plain twins run only for CPU tensors.
+A package without its sources, an unwritable cache, a missing nvcc or a
+failed build raises, the last with nvcc's own message.  There is no
+fallback: the kernels' plain twins run only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,9 +36,10 @@ import subprocess
 import uuid
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+from findkmer_torch import _native
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = _native.cache_dir("kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -67,7 +74,15 @@ def nvcc_path() -> str:
 
 
 def sources() -> list:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    """The kernels' sources under CSRC; raises RuntimeError where there
+    are none (a package installed without them cannot build)."""
+    found = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    if not any(p.suffix == ".cu" for p in found):
+        raise RuntimeError(
+            f"no CUDA sources under {CSRC}; the package was installed "
+            "without its csrc/"
+        )
+    return found
 
 
 def library_path() -> Path:
@@ -85,7 +100,7 @@ def build() -> Path:
     if out.exists():
         return out
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _native.ensure_dir(BUILD_DIR)
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.{uuid.uuid4().hex}"
     tmp.mkdir()
     try:

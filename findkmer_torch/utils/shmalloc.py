@@ -7,10 +7,12 @@ installs a numpy PyDataMem handler that serves allocations >= 1 MiB from
 MAP_SHARED|MAP_ANONYMOUS mmaps (with a small pooled free-list), which
 covers every large host buffer of a run.
 
-The extension is compiled from the repository's source at first use into
-the port's own build directory (`build/torch_native/`).  Best-effort: it
-silently stays on the default allocator if anything fails (correctness is
-unaffected).  Kill-switch: FINDKMER_NO_SHMALLOC=1.
+An installed tree imports the wheel's own `findkmer_shmalloc`.  In a
+source checkout the extension is compiled from the repository's source at
+first use into `_native.cache_dir("native")` (`build/torch_native/`
+there).  Best-effort: it silently stays on the default allocator if
+anything fails (correctness is unaffected).  Kill-switch:
+FINDKMER_NO_SHMALLOC=1.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+from findkmer_torch import _native
+
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _REPO_ROOT / "src" / "native" / "shmalloc.c"
-BUILD_DIR = _REPO_ROOT / "build" / "torch_native"
+BUILD_DIR = _native.cache_dir("native")
 _installed = False
 _attempted = False
 
@@ -38,7 +42,7 @@ def _build() -> bool:
 
         import numpy
 
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _native.ensure_dir(BUILD_DIR)
         tmp = out.with_name(f".{out.name}.{os.getpid()}")
         cc = os.environ.get("CC", "cc")
         cmd = [
@@ -53,7 +57,8 @@ def _build() -> bool:
             return False
         os.replace(tmp, out)
         return True
-    except (OSError, subprocess.SubprocessError, ImportError, KeyError):
+    except (OSError, subprocess.SubprocessError, ImportError, KeyError,
+            _native.CacheError):
         return False
 
 

@@ -15,6 +15,9 @@ import functools
 import gzip
 import io
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,8 @@ import findkmer_torch
 from findkmer_torch import cli, filter as port_filter
 from findkmer_torch import filter_device, pipeline
 from findkmer_torch.io import native
+
+REPO = Path(__file__).resolve().parents[1]
 
 CPU = torch.device("cpu")
 SMALL = dict(batch_rows=2, chunk_len=2048)  # 4096 windows a device batch
@@ -422,19 +427,39 @@ def test_cli_filter_default_geometry(data, tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("engine", ["host", "device"])
-def test_cli_filter_sam_input_exits_2(data, tmp_path, capsys, engine):
-    """SAM/BAM records cannot be re-emitted verbatim: both CLIs refuse
-    with the same reason; the port exits 2 (trouble), where the JAX CLI
-    raises SystemExit with the message (exit 1 as a process)."""
-    argv = ["filter", "-i", str(data / "r.sam"), "--spectrum",
-            str(data / "spec7.tsv"), "-o", str(tmp_path / "o.fq"),
-            "--engine", engine]
+def test_cli_filter_sam_input_refused_as_the_reference(data, tmp_path,
+                                                       engine):
+    """SAM/BAM records cannot be re-emitted verbatim: both packages refuse
+    them alike, with SystemExit and the same message from the CLI's main
+    and from the API, the same output file left behind, and exit code 1
+    as a process."""
+    sam, spec = str(data / "r.sam"), str(data / "spec7.tsv")
+    outs = {name: str(tmp_path / f"{name}.fq")
+            for name in ("j", "t", "ja", "ta")}
+    argv = ["filter", "-i", sam, "--spectrum", spec, "--engine", engine]
     with pytest.raises(SystemExit) as want:
-        jax_cli.main(argv)
-    rc, msg = _run(cli.main, argv + ["--device", "cpu"], capsys)
-    assert rc == 2
-    assert msg.startswith("filter reads FASTA/FASTQ only")
-    assert msg in str(want.value.code)
+        jax_cli.main(argv + ["-o", outs["j"]])
+    with pytest.raises(SystemExit) as got:
+        cli.main(argv + ["-o", outs["t"], "--device", "cpu"])
+    assert want.value.code.startswith("findkmer filter reads FASTA/FASTQ")
+    assert got.value.code == want.value.code
+    with pytest.raises(SystemExit) as want_api:
+        jax_api.filter_reads(sam, spec, outs["ja"], engine=engine)
+    with pytest.raises(SystemExit) as got_api:
+        findkmer_torch.filter_reads(sam, spec, outs["ta"],
+                                    engine=engine, device="cpu")
+    assert got_api.value.code == want_api.value.code == want.value.code
+    assert _outputs([outs["t"], outs["ta"]]) == _outputs([outs["j"],
+                                                          outs["ja"]])
+    procs = [subprocess.run(
+        [sys.executable, "-m", f"{pkg}.cli", *argv, "-o",
+         str(tmp_path / f"{pkg}.fq"), *extra],
+        capture_output=True, text=True, cwd=REPO)
+        for pkg, extra in (("findkmer_tpu", []),
+                           ("findkmer_torch", ["--device", "cpu"]))]
+    assert [p.returncode for p in procs] == [1, 1]
+    assert [p.stderr.strip().splitlines()[-1] for p in procs] == \
+        [want.value.code] * 2
 
 
 def test_cli_filter_help_equal():

@@ -391,14 +391,14 @@ def test_cpu_sparse_slice_never_builds(fixtures_dir, monkeypatch):
 def test_native_encoder_build_retries_with_cc(tmp_path, monkeypatch):
     """A $CC that cannot build the C host library (as a compiler without
     OpenMP cannot) gets one retry with cc; $CC is left as it was.  The
-    library lands in the port's own build directory, and the source's
-    directory gains no file."""
+    library lands in the port's own build directory (in a checkout,
+    build/torch_native/), and the source's directory gains no file."""
     if shutil.which("cc") is None:
         pytest.skip("no cc on this machine")
     from findkmer_torch.io import native
 
     assert native.BUILD_DIR == REPO / "build" / "torch_native"
-    assert native.SOURCE == REPO / "src" / "native" / "encode.c"
+    assert native.SOURCE == PORT / "_native" / "encode.c"
     src_before = sorted(p.name for p in native.SOURCE.parent.iterdir())
     build_dir = tmp_path / "torch_native"
     monkeypatch.setattr(native, "BUILD_DIR", build_dir)

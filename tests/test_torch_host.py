@@ -12,6 +12,7 @@ import dataclasses
 import gzip
 import io
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -84,6 +85,18 @@ def test_config_fields_and_defaults_equal():
     assert consts and all(
         getattr(config, n) == getattr(jax_config, n) for n in consts)
     assert version.__version__ == jax_version.__version__
+
+
+def test_package_version_and_exports_equal():
+    """`__version__` at the top of each package, and the same `__all__`
+    but for `stream_count`, which only the port exports there."""
+    import findkmer_tpu
+
+    assert findkmer_torch.__version__ == findkmer_tpu.__version__
+    assert "__version__" in findkmer_torch.__all__
+    assert set(findkmer_torch.__all__) - {"stream_count"} == \
+        set(findkmer_tpu.__all__)
+    assert len(findkmer_torch.__all__) == len(set(findkmer_torch.__all__))
 
 
 @pytest.mark.parametrize("table_mode", ["auto", "direct", "sparse"])
@@ -312,6 +325,16 @@ def test_pack_rows_equal(B, L, R, use_native):
 def _need_native():
     if not (native.available() and jax_native.available()):
         pytest.skip("no C compiler: the native encoder did not build")
+
+
+def test_native_source_is_the_repository_copy():
+    """The port builds its C host library from the copy it ships,
+    `_native/encode.c`, byte-equal to the repository's source (which the
+    JAX package builds)."""
+    pkg = Path(findkmer_torch.__file__).resolve().parent
+    assert native.SOURCE == pkg / "_native" / "encode.c"
+    original = pkg.parent / "src" / "native" / "encode.c"
+    assert native.SOURCE.read_bytes() == original.read_bytes()
 
 
 def test_native_entry_points_equal():
