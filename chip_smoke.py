@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
                           [--only rowsort|window|stream|filter|tools|mesh|
-                                  spill|installed]
+                                  spill|installed|bench]
                           [--against DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
@@ -175,8 +175,8 @@ final ok-line is not printed.
      phase is a K3 launch, K2 launches in the two k=8 runs alone, K1 never
  14. counting over a mesh of shards (`findkmer_torch/parallel/`), every
      shard on card 0: the dry run (`parallel/dryrun.py`) over meshes of 2
-     and 4 shards on a seeded genome of 128,000,000 bases, two batches
-     of 1024 x 65536, each leg's spectrum sha256-equal to the single-device
+     and 4 shards on a seeded genome of 64,000,000 bases, two batches
+     of 512 x 65536, each leg's spectrum sha256-equal to the single-device
      counter's on the same batches (counted first): psum and psum_scatter
      at k=8, all_to_all at k=15 on the full 4^15 table (4 GiB of int32
      over the shards) and on a table scaled to 4^8 entries (the full
@@ -211,6 +211,20 @@ final ok-line is not printed.
      naming the card and the C encoder, the package, both libraries and
      the cache under the temporary directories, and nothing of the JAX
      package imported
+ 16. `bench` (`findkmer_torch/bench/`) through the CLI at its default
+     --gbases 0.25, five runs: `bench -k 8` (the staged dense step: K2's
+     uint8-row entry at 256 x (65536 + 7), once a step), `bench -k 21
+     --canonical` (the staged sparse step at 32 x 16384: K3 in the
+     compaction of each of its two runs), `bench -k 13` (the sparse step
+     at 256 x 65536, where the reference's bench fails), `bench --phases
+     -k 8` and `bench --phases -k 21 --canonical` (a 250 Mbase synthetic
+     FASTA counted end to end, the reference's four phase names).  Each
+     run's JSON line and stderr table, its K2 and K3 launches (counted
+     from 0; K2 once a dense step or batch, K3 once a row sort, K1
+     never) and its peak device memory.  The staged results are held to
+     the plain routes on the card, exactly: the dense table equals
+     (steps + 1) times the `--hist scatter` histogram of the one batch,
+     the finalized sparse store the plain row sort's after the same runs
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -226,20 +240,21 @@ the quick check of an edit to those kernels; with --only stream phases
 1, 2 and 11; with --only filter phases 1, 2 and 12; with --only tools
 phases 1, 2 and 13; with --only mesh phases 1, 2 and 14; with --only
 installed phases 1, 2 and 15 (the checkout's own two counts of the genome
-made first, to hold the installed ones to); with --only spill [--against
+made first, to hold the installed ones to); with --only bench phases 1, 2
+and 16; with --only spill [--against
 DIR] phases 1 and 2, then phase 11's `count --spill` as a process of its
 own from this checkout and from DIR (another checkout
 of the port, such as the parent commit unpacked into build/), in turn,
 with each run's wall, dispatch seconds and peak device memory, the
-outputs sha256-equal.  Each of the eight prints no summary and no
+outputs sha256-equal.  Each of the nine prints no summary and no
 ok-line.
 
 The line before the last is a JSON summary of the kernels (for each its
 launches on the main paths: the `count` runs, each run that phase 11
 makes in this process, the filter runs of phase 12, which launch none,
-the runs on the card of phase 13, the mesh runs of phase 14 and the
-installed package's runs of phase 15 (`launches_by_path`), each counted
-from 0, and for K3 apart those on
+the runs on the card of phase 13, the mesh runs of phase 14, the
+installed package's runs of phase 15 and the `bench` runs of phase 16
+(`launches_by_path`), each counted from 0, and for K3 apart those on
 rows longer than a tile (`long_launches_by_path`: the dedups of the spill
 paths, none in a plain `count` or `stream`); its ms beside the plain
 version's, the one
@@ -2780,11 +2795,13 @@ def phase_tools(tmp: str, seed: int) -> dict:
 
 
 # phase 14: counting over a mesh of shards (parallel/), all on card 0
-# two production batches of 1024 x 65536 (128 Mi bases and the record
-# separators would spill into a third)
-MESH_GENOME_BASES = 128_000_000
+# two batches of 512 x 65536 rows (64 Mi bases and the record separators
+# would spill into a third): the checkpoint leg restores after the first,
+# the spill leg's store carries into the second
+MESH_GENOME_BASES = 64_000_000
+MESH_BATCH_ROWS = 512
 MESH_SHARDS = (2, 4)
-# the spill leg's capacity: far below a shard's ~33 M distinct k=21 codes
+# the spill leg's capacity: far below a shard's ~16 M distinct k=21 codes
 MESH_SPILL_CAPACITY = 1 << 20
 COORD_BASES = 32 << 20
 
@@ -2920,10 +2937,10 @@ def phase_mesh(tmp: str, seed: int) -> dict:
     fasta = os.path.join(d, "genome.fa")
     write_genome(fasta, seed + 14, MESH_GENOME_BASES)
     dev = torch.device("cuda", 0)
-    # the capacity: a shard (and the single reference) holds all ~129 M
+    # the capacity: a shard (and the single reference) holds all ~65 M
     # distinct canonical 21-mers; the spill leg sets its own
     run = dryrun.DryRun(
-        fasta, Config(batch_rows=PROD_SHAPE[0], chunk_len=PROD_SHAPE[1],
+        fasta, Config(batch_rows=MESH_BATCH_ROWS, chunk_len=PROD_SHAPE[1],
                       sparse_capacity=1 << 28),
         reference="engine", device=dev, k_dense=8, k_route=15, k_scaled=15,
         k_sparse=21, spill_capacity=MESH_SPILL_CAPACITY)
@@ -2972,6 +2989,145 @@ def phase_mesh(tmp: str, seed: int) -> dict:
     return launched
 
 
+# phase 16: `bench` through the CLI at its default --gbases (0.25): the
+# staged dense step (K2's uint8-row entry), the staged sparse step (K3 in
+# its compaction), the sparse step at k=13 (where the reference's bench
+# fails) and the end-to-end --phases runs
+BENCH_RUNS = (("k8", ["-k", "8"]),
+              ("k21_canonical", ["-k", "21", "--canonical"]),
+              ("k13", ["-k", "13"]),
+              ("phases_k8", ["--phases", "-k", "8"]),
+              ("phases_k21_canonical", ["--phases", "-k", "21",
+                                        "--canonical"]))
+BENCH_PHASES = ["dispatch", "finalize", "host_batches", "write"]
+
+
+class _BenchTap:
+    """Keeps the keywords, counter and final state of each staged step
+    that `bench` runs, by wrapping `bench.steps._dense_run` and
+    `_sparse_run`, so that the CLI run's result can be held to the plain
+    route after it."""
+
+    def __init__(self):
+        from findkmer_torch.bench import steps
+
+        self.steps = steps
+        self.runs = []
+        self._orig = {}
+
+    def __enter__(self):
+        for name in ("_dense_run", "_sparse_run"):
+            orig = self._orig[name] = getattr(self.steps, name)
+
+            def tapped(*args, _orig=orig, _name=name, **kw):
+                out = _orig(*args, **kw)
+                self.runs.append((_name, kw, out[0], out[1]))
+                return out
+
+            setattr(self.steps, name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(self.steps, name, orig)
+
+
+def _bench_check(steps, runs: list, dev: torch.device) -> dict:
+    """The CLI run's staged result (taken from `runs`, so that it is freed
+    before the plain route runs) against the plain route on the same
+    batch: the dense table is (steps + 1) times the `--hist scatter`
+    histogram of the one batch; the sparse store, finalized, is the plain
+    row sort's (`row_sort="plain"`) after the same two runs.  Exact."""
+    kind, kw, counter, state = runs.pop()
+    if kind == "_dense_run":
+        _, plain, _ = steps._dense_run(dev, **{**kw, "steps": 0,
+                                               "hist": "scatter"})
+        want = plain.counts * (kw["steps"] + 1)
+        if not torch.equal(state.counts, want):
+            bad = int((state.counts != want).sum())
+            raise AssertionError(f"bench dense step {kw}: {bad} bins differ "
+                                 "from the plain histogram")
+        return {"plain": "--hist scatter x (steps + 1)",
+                "windows": int(want.sum()), "max_abs_err": 0}
+    got = counter.finalize(state)
+    del counter, state
+    torch.cuda.empty_cache()
+    pcounter, pstate, _ = steps._sparse_run(dev, **{**kw,
+                                                    "row_sort": "plain"})
+    want = pcounter.finalize(pstate)
+    del pstate
+    torch.cuda.empty_cache()
+    for a, b, what in zip(got, want, ("codes", "counts")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"bench sparse step {kw}: {what} differ "
+                                 "from the plain row sort's")
+    return {"plain": "row_sort=plain", "distinct": int(got[0].shape[0]),
+            "windows": int(got[1].sum()), "max_abs_err": 0}
+
+
+def phase_bench() -> dict:
+    """`bench` on the card (phase 16 of the module docstring).  -> {kernel:
+    its launches in the five CLI runs}, the counts set to 0 just before
+    each run and read just after it; the checks against the plain routes
+    launch after the counts are read."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    total = dict.fromkeys(WRAPPERS, 0)
+    for name, argv in BENCH_RUNS:
+        out, err = io.StringIO(), io.StringIO()
+        with _BenchTap() as bench, _RowSortTap() as tap:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in WRAPPERS.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["bench", *argv])
+            wall = time.perf_counter() - t0
+            launched = {key: w.launches for key, w in WRAPPERS.items()}
+            sorts = tap.calls
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise AssertionError(f"bench {argv}: rc {rc}: {err.getvalue()}")
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        k2 = launched["fused_window_histogram_cuda"]
+        k3 = launched["sort_rows_cuda"]
+        check = {}
+        if "--phases" in argv:
+            if sorted(line["phases"]) != BENCH_PHASES:
+                raise AssertionError(f"bench {argv}: phases "
+                                     f"{sorted(line['phases'])}")
+            batches = line["phases"]["dispatch"]["calls"]
+            want_k2 = batches if line["k"] <= 10 else 0
+        else:
+            if line["device"] != str(dev) or len(bench.runs) != 1:
+                raise AssertionError(f"bench {argv}: {line}, "
+                                     f"{len(bench.runs)} staged runs")
+            kind, kw = bench.runs[0][:2]
+            want_k2 = kw["steps"] + 1 if kind == "_dense_run" else 0
+            check = _bench_check(bench.steps, bench.runs, dev)
+            check["staged"] = {key: kw[key] for key in (
+                "k", "batch_rows", "chunk_len", "steps", "canonical")}
+        # K2 once a step (dense), K3 on every row sort (sparse), K1 never
+        if (k2 != want_k2 or launched["histogram_cuda"] or k3 != sorts
+                or (line["k"] > 10) != (k3 > 0)):
+            raise AssertionError(f"bench {argv}: launches {launched}, "
+                                 f"{sorts} row sorts, K2 expected {want_k2}")
+        for key, n in launched.items():
+            total[key] += n
+        torch.cuda.empty_cache()
+        say("bench_run", run=name, argv=argv, result=line,
+            table=[ln for ln in err.getvalue().splitlines()
+                   if ln.startswith("#")],
+            k2_launches=k2, k3_launches=k3,
+            k3_long_launches=launched["sort_rows_cuda_long"],
+            row_sorts=sorts, peak_device_bytes=peak, cli_wall_s=wall,
+            **check)
+    say("bench_phase", launches=total, seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2980,14 +3136,15 @@ def main() -> int:
                          "device step by kernel")
     ap.add_argument("--only", choices=["rowsort", "window", "stream",
                                        "filter", "tools", "mesh", "spill",
-                                       "installed"],
+                                       "installed", "bench"],
                     help="run only the row sort's phases (K3), only the "
                          "histogram kernels' (K1 and K2), only the "
                          "restartable stream's, only read filtering's, "
                          "only the spectrum tools', only the mesh's, only "
-                         "the `count --spill` A/B (--against), or only the "
-                         "installed package's, and stop: no summary, no "
-                         "ok-line; the quick check of an edit")
+                         "the `count --spill` A/B (--against), only the "
+                         "installed package's, or only `bench`'s, and "
+                         "stop: no summary, no ok-line; the quick check of "
+                         "an edit")
     ap.add_argument("--against", metavar="DIR",
                     help="with --only spill: another checkout of the port "
                          "(e.g. the parent commit) whose `count --spill` "
@@ -3017,6 +3174,9 @@ def main() -> int:
     if args.only == "mesh":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             phase_mesh(tmp, args.seed)
+        return 0
+    if args.only == "bench":
+        phase_bench()
         return 0
     if args.only == "spill":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3068,6 +3228,7 @@ def main() -> int:
         filter_launches = phase_filter(tmp, args.seed)
         tools_launches = phase_tools(tmp, args.seed)
         mesh_launches = phase_mesh(tmp, args.seed)
+    bench_launches = phase_bench()
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
@@ -3081,11 +3242,13 @@ def main() -> int:
     def launches_of(name: str, count: int) -> dict:
         """The `count` paths' launches, each stream-phase run's own, the
         filter runs' (none), the spectrum tools' (K2 and K3), the mesh's
-        (K2 and K3) and the installed package's (K2 and K3)."""
+        (K2 and K3), the installed package's (K2 and K3) and `bench`'s
+        (K2 and K3)."""
         by_run = {**stream_launches[name], "filter": filter_launches[name],
                   "tools": tools_launches[name],
                   "mesh": mesh_launches[name],
-                  "installed": installed_launches[name]}
+                  "installed": installed_launches[name],
+                  "bench": bench_launches[name]}
         return {"launches": count + sum(by_run.values()),
                 "launches_by_path": {"count": count, **by_run}}
 

@@ -1,0 +1,8 @@
+"""`findkmer-torch bench`: the quick on-device throughput check.
+
+The port's own copy of what the JAX package's `findkmer bench` reaches in
+the repository's root `bench` package (`steps.py`: the staged dense and
+sparse steps; `quick.py`: the subcommand and its `--phases` run), over
+the port's counter.  It imports neither jax nor that package: an
+installed port has no repository root.
+"""

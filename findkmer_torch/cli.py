@@ -11,6 +11,8 @@
     python -m findkmer_torch.cli filter -i R1.fq R2.fq --paired \
         --spectrum spec.tsv -o kept1.fq,kept2.fq
     python -m findkmer_torch.cli selftest [--device cuda] [--seed N]
+    python -m findkmer_torch.cli bench -k 21 --canonical [--phases] \
+        [--gbases 0.25] [--device cuda]
 
 Counted on --device (cuda by default) before their host work:
     python -m findkmer_torch.cli matrix -i a.fa b.fa -k 21 --canonical -o m.tsv
@@ -33,9 +35,12 @@ port's `spectra.py` and `sketch.py`; the spectrum is written by
 `write_spectrum_streaming` over the counter's chunked finalize).  Any k
 up to 31 counts; the spectrum tools also take files of longer k-mers.
 `--device` picks the torch device; asking for cuda without one is an
-error (exit 2), never a CPU run.  One exit code differs: `filter` refuses
-SAM/BAM input with exit 2 (trouble), where the JAX CLI exits 1 (its
-"nothing kept").  `bench` is not ported.
+error (exit 2), never a CPU run.  `bench` prints the reference's JSON
+keys, with `device` the torch device (`cuda:0`) where the reference names
+its jax device; at 11 <= k <= 15 it times the sparse step (the counter's
+table mode there), where the reference sends the rows to its dense step
+and fails, and `--phases` holds up to 2^28 distinct k-mers, where the
+reference's 2^22 store fails.
 
 `--devices N` (`count`, `stream`, `histo`, `selftest`) counts over a
 mesh of N shards (`parallel/dist.py`, `--merge` picks the strategy):
@@ -1311,6 +1316,19 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(pf, "score on")
     pf.set_defaults(fn=cmd_filter)
 
+    pb = sub.add_parser("bench", help="quick on-device benchmark")
+    pb.add_argument("-k", type=int, default=8)
+    pb.add_argument("--gbases", type=float, default=0.25,
+                    help="synthetic bases to count (billions)")
+    pb.add_argument("--hist", default="auto")
+    pb.add_argument("--canonical", action="store_true")
+    pb.add_argument("--phases", action="store_true",
+                    help="end-to-end run on synthetic FASTA with a "
+                         "wall-clock phase breakdown (host batching / "
+                         "dispatch / finalize / write)")
+    _add_device(pb, "count on")
+    pb.set_defaults(fn=cmd_bench)
+
     pst = sub.add_parser(
         "selftest",
         help="count synthetic DNA on this device and diff bit-exactly "
@@ -1329,6 +1347,13 @@ def _add_device(p: argparse.ArgumentParser, what: str) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help=f"torch device to {what} (default cuda; cuda "
                         "without a CUDA device is an error)")
+
+
+def cmd_bench(args, **_kernels) -> int:
+    """`bench` (bench/quick.py): the counter's default kernels."""
+    from findkmer_torch.bench import quick
+
+    return quick.run(args)
 
 
 def cmd_selftest(args, row_sort: str = "auto",

@@ -181,3 +181,7 @@ def write_spectrum(f: IO[bytes], spectrum, cfg: Config) -> int:
         f.write(block)
         n += len(block)
     return n
+
+
+def spectrum_to_text(spectrum, cfg: Config) -> str:
+    return b"".join(spectrum_chunks(spectrum, cfg)).decode()

@@ -26,13 +26,15 @@ PORT = REPO / "findkmer_torch"
 
 
 def _without_jax(code, tmp_path):
-    """Run `code` in a fresh interpreter; fail if it fails, or if jax or
-    any module of the JAX package was loaded.  -> its stdout."""
+    """Run `code` in a fresh interpreter; fail if it fails, or if jax, any
+    module of the JAX package or the repository's root `bench` package
+    (which imports both) was loaded.  -> its stdout."""
     code += (
         "\nimport sys\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'jaxlib' not in sys.modules, 'jaxlib was imported'\n"
-        "tpu = [m for m in sys.modules if m.split('.')[0] == 'findkmer_tpu']\n"
+        "tpu = [m for m in sys.modules if m.split('.')[0] in"
+        " ('findkmer_tpu', 'bench')]\n"
         "assert not tpu, f'the JAX package was imported: {tpu}'\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -133,6 +135,25 @@ def test_selftest_never_imports_jax(tmp_path):
         tmp_path,
     )
     assert "selftest OK (3/3 cases bit-exact)" in out
+
+
+def test_bench_never_imports_jax(tmp_path):
+    """`bench` (the dense and the sparse staged step) and `bench
+    --phases`, in a fresh interpreter: one JSON line each."""
+    out = _without_jax(
+        "from findkmer_torch.cli import main\n"
+        "for argv in (['-k', '8'], ['-k', '21', '--canonical'],"
+        " ['--phases', '-k', '21']):\n"
+        "    assert main(['bench', '--device', 'cpu', '--gbases', '0.0001']"
+        " + argv) == 0, argv\n"
+        "import findkmer_torch.bench.steps, findkmer_torch.bench.quick\n",
+        tmp_path,
+    )
+    lines = [json.loads(ln) for ln in out.splitlines()]
+    assert [d["k"] for d in lines] == [8, 21, 21]
+    assert all(d["bases_per_s"] > 0 for d in lines)
+    assert sorted(lines[2]["phases"]) == ["dispatch", "finalize",
+                                          "host_batches", "write"]
 
 
 def test_api_never_imports_jax(fixtures_dir, tmp_path):
@@ -282,14 +303,17 @@ def test_filter_engine_device_without_cuda_exits_2(fixtures_dir, tmp_path,
 
 def test_port_sources_do_not_import_jax():
     # neither jax nor anything of the JAX package, at module level or
-    # inside a function, not even its jax-free modules: the port keeps its
-    # own copies, and the smoke script drives the port alone
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|findkmer_tpu)\b", re.M)
+    # inside a function, not even its jax-free modules, nor the root
+    # `bench` package: the port keeps its own copies, and the smoke
+    # script drives the port alone
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|findkmer_tpu|bench)\b",
+                     re.M)
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
     for new in ("streaming.py", "spill.py", "utils/checkpoint.py",
                 "utils/logging.py", "parallel/multihost.py", "filter.py",
-                "filter_device.py", "spectra.py", "sketch.py"):
+                "filter_device.py", "spectra.py", "sketch.py",
+                "bench/steps.py", "bench/quick.py"):
         assert PORT / new in sources
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pat.search(p.read_text())]
