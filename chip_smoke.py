@@ -51,6 +51,21 @@ final ok-line is not printed.
      of integer atomic adds to random words of a 4^k-bin table (k = 6, 8,
      10) in shared memory and in the L2 (`csrc/atomic_rate.cu`): what one
      atomic a window costs, beside the byte bound
+ 4b. C1 (the sparse path's window extraction) vs the plain
+     `ops/window.window_codes_packed` on the card, slot for slot
+     (`torch.equal`, dtype, slot count): k in {1, 2, 11, 15, 16, 17, 21,
+     28, 29, 31}, canonical and not; random wire with ~2% invalid bases,
+     all invalid, poly-A, poly-T (codes of 4^k - 1, just under the
+     sentinel) and rows of exactly k bases; shapes (3, 1000 + k - 1),
+     (5, 1013) (254 wire bytes a row), the filter's (256, 65536 + k - 1),
+     `bench`'s (32, 16384 + k - 1) and the production (1024, 65536 + k -
+     1); R the true row length, 0 and shorter (trimmed) on the small
+     shapes; `out=` into the middle of a buffer filled with a marker.  Then
+     the median CUDA-event ms of C1 and of the plain version, in turn, into
+     one preallocated output, at the production shape (k = 15, 21
+     --canonical, 31 --canonical) and at the filter's and `bench`'s shapes
+     (k = 21 --canonical), beside the bound (wire in, codes out at 3.35
+     TB/s); no library call computes the same
   5. K3 (row sort) vs `sort_rows_reference` (torch.sort + gather) on the
      card, exact: keys equal, (key, count) pairs equal as multisets per
      row; cases random, all equal, all sentinel, sorted, reversed, and
@@ -86,11 +101,15 @@ final ok-line is not printed.
      batch staged on the card, for each of the three (with the share of
      its windows that are valid)
   7. sparse main path: the same genome at k=21 --canonical and k=15
-     (row sort K3), each also run with the plain row sort; every row sort
-     of every compaction must be a K3 launch, and the two outputs must
-     hash equal (streamed sha256; each file is deleted once hashed).
+     (C1 on every ingest, row sort K3), each also run by the all-plain
+     route (the plain row sort, and the plain extraction through a tap on
+     the name `counter.ingest` calls); every ingest of the kernel route
+     must be a C1 launch and every row sort of every compaction a K3
+     launch, the all-plain route must launch neither, and the two outputs
+     must hash equal (streamed sha256; each file is deleted once hashed).
      Prints bases/s and the CLI's phases, with the row sorts' device ms
-  8. sparse device step: a staged k=21 --canonical batch: ingest ms,
+  8. sparse device step: a staged k=21 --canonical batch: ingest ms (C1,
+     and the plain extraction beside it, the two outputs equal),
      four compactions of the repeated batch at sparse_compact_entries =
      2^26 (raw, count-carrying, and one that squeezes first), each with
      its row sorts' device ms, then finalize ms
@@ -99,7 +118,8 @@ final ok-line is not printed.
  10. entry points: `selftest --device cuda` (3/3 cases bit-exact);
      `count --per-record` of a seeded FASTA of 1000 records of 100-5000
      bases with N runs at k=8 and k=21 --canonical, equal byte for byte to
-     the same run with --device cpu; `count --per-input` over three
+     the same run with --device cpu (C1 on every batch of the k=21 run on
+     the card, no launch on the CPU); `count --per-input` over three
      inputs, each file equal to a single `count` of that input
  11. the restartable stream, over a seeded genome of 64 Mbase of its
      own in batches of 256 x 65536 (five batches, as the main paths'
@@ -137,11 +157,12 @@ final ok-line is not printed.
      --paired --pair-mode both --invert, --min-frac 0.5, the subset at
      k=15 and k=31 (at k=31 also with the CLI's defaults, whose auto pick
      on cuda is the device engine); each device run's batch steps must
-     have run on cuda, and none of K1-K3 may launch.  Reads/s and bases/s
-     of every run; then the device step alone on one staged batch of 256
-     x 65536 windows: median CUDA-event ms of the step and of its
-     extraction, membership and bitmap, each beside the bytes bound of its
-     own inputs and outputs, the member table's bytes, and the spectrum
+     have run on cuda, C1 must launch once a device step and none of K1-K3
+     may launch.  Reads/s and bases/s of every run; then the device step
+     alone on one staged batch of 256 x 65536 windows: median CUDA-event
+     ms of the step and of its extraction (C1, and the plain version),
+     membership and bitmap, each beside the bytes bound of its own inputs
+     and outputs, the member table's bytes, and the spectrum
      load's host seconds by part (parse, fold, the whole load, the host
      engine's prefilter)
  13. the spectrum tools over a cohort (the Mash `sketch`/`dist` and
@@ -235,8 +256,9 @@ wall time the device was busy.
 With --only rowsort the script runs phases 1, 2 and 5 (and first prints
 what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
 the instructions of its production kernels by opcode); with --only window
-phases 1 to 4 (with the same of histogram.cu and window_histogram.cu):
-the quick check of an edit to those kernels; with --only stream phases
+phases 1 to 4 (with the same of histogram.cu and window_histogram.cu)
+and phase 4b (with `ptxas -v` of window_codes.cu): the quick check of
+an edit to those kernels; with --only stream phases
 1, 2 and 11; with --only filter phases 1, 2 and 12; with --only tools
 phases 1, 2 and 13; with --only mesh phases 1, 2 and 14; with --only
 installed phases 1, 2 and 15 (the checkout's own two counts of the genome
@@ -249,16 +271,16 @@ with each run's wall, dispatch seconds and peak device memory, the
 outputs sha256-equal.  Each of the nine prints no summary and no
 ok-line.
 
-The line before the last is a JSON summary of the kernels (for each its
-launches on the main paths: the `count` runs, each run that phase 11
-makes in this process, the filter runs of phase 12, which launch none,
-the runs on the card of phase 13, the mesh runs of phase 14, the
-installed package's runs of phase 15 and the `bench` runs of phase 16
-(`launches_by_path`), each counted from 0, and for K3 apart those on
-rows longer than a tile (`long_launches_by_path`: the dedups of the spill
-paths, none in a plain `count` or `stream`); its ms beside the plain
-version's, the one
-library call's where there is one, and its bound); the last line is
+The line before the last is a JSON summary of the kernels K1, K2, K3
+and C1 (for each its launches on the main paths: the `count` runs, each
+run that phase 11 makes in this process, the `--per-record` runs on the
+card of phase 10, the filter runs of phase 12 (C1 alone), the runs on the
+card of phase 13, the mesh runs of phase 14, the installed package's runs
+of phase 15 and the `bench` runs of phase 16 (`launches_by_path`), each
+counted from 0, and for K3 apart those on rows longer than a tile
+(`long_launches_by_path`: the dedups of the spill paths, none in a plain
+`count` or `stream`); its ms beside the plain version's, the one library
+call's where there is one, and its bound); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -302,6 +324,9 @@ from findkmer_torch.ops.cuda.rowsort_kernel import (
     sort_plan,
     sort_rows_cuda,
     sort_rows_reference,
+)
+from findkmer_torch.ops.cuda.window_codes_kernel import (
+    window_codes_packed_cuda,
 )
 from findkmer_torch.ops.cuda.window_histogram_kernel import (
     add_window_counts_cuda,
@@ -364,6 +389,18 @@ SEAM_ROWS = 37
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 SPARSE_RUNS = ((21, ["--canonical"]), (15, []))
+# C1: k at the seams of its arithmetic (k = 15 / 16: int32 / int64 codes,
+# and k = 16 the narrow path with no shift; k = 17 the first of three
+# words; k >= 29 the shortest shifts of the 64-bit funnel)
+C1_KS = (1, 2, 11, 15, 16, 17, 21, 28, 29, 31)
+C1_CASES = ("random", "invalid", "poly_a", "poly_t")
+# C1 timed: (name, rows, owned bases a row, k, canonical) at the
+# production batch, the filter's and `bench`'s ingest
+C1_TIMED = (("prod_k15", PROD_SHAPE[0], PROD_SHAPE[1], 15, False),
+            ("prod_k21_canonical", PROD_SHAPE[0], PROD_SHAPE[1], 21, True),
+            ("prod_k31_canonical", PROD_SHAPE[0], PROD_SHAPE[1], 31, True),
+            ("filter_k21_canonical", 256, PROD_SHAPE[1], 21, True),
+            ("bench_k21_canonical", 32, 16384, 21, True))
 ORACLE_RUNS = ((4, []), (8, []), (4, ["-z"]), (11, []),
                (21, ["--canonical"]), (31, []))
 
@@ -767,6 +804,120 @@ def phase_window_timing(seed: int) -> dict:
     return timing
 
 
+def _c1_rows(case: str, shape, gen: torch.Generator,
+             invalid: float = 0.02) -> torch.Tensor:
+    """(B, R) uint8 rows for C1: `_k2_rows`' cases, poly-T (codes of
+    4^k - 1, just under the sentinel), and all valid (`exact_k`)."""
+    if case == "poly_t":
+        return torch.full(shape, 3, dtype=torch.uint8, device="cuda")
+    if case == "exact_k":
+        return _k2_rows("random", shape, gen) & 3
+    return _k2_rows(case, shape, gen, invalid)
+
+
+def _check_codes(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """C1 against the plain extraction: the same dtype and slot count,
+    every slot equal (`torch.equal`); raises otherwise."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{what}: {bad} of {want.numel()} slots differ")
+
+
+def phase_window_codes(seed: int) -> int:
+    """C1 (window extraction) vs `ops/window.window_codes_packed` on the
+    card, slot for slot, at every k of C1_KS, fwd and canonical: random
+    wire with ~2% invalid bases, all invalid, poly-A, poly-T, at the
+    shapes (3, 1000 + k - 1), (5, 1013) (254 wire bytes a row: no
+    multiple of 4), the filter's (256, 65536 + k - 1), `bench`'s (32,
+    16384 + k - 1) and the production (1024, 65536 + k - 1); rows of
+    exactly k bases; R the true row length, 0 (every word) and shorter
+    (trimmed) on the small shapes; `out=` into the middle of a buffer
+    filled with a marker.  -> max abs err: 0, as any difference raises."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    n_cases = 0
+    for k in C1_KS:
+        small = [(3, 1000 + k - 1), (5, 1013)]
+        big = [(256, 65536 + k - 1), (32, 16384 + k - 1),
+               (PROD_SHAPE[0], PROD_SHAPE[1] + k - 1)]
+        cases = [(c, sh) for sh in small + big for c in C1_CASES]
+        cases.append(("exact_k", (3, k)))
+        for case, shape in cases:
+            packed, validbits = _pack_wire(_c1_rows(case, shape, gen))
+            R = shape[1]
+            trims = (R, 0, max(R - 3, 1)) if shape not in big else (R,)
+            for canonical in (False, True):
+                for r in trims:
+                    what = (f"C1 k={k} canonical={canonical} shape={shape} "
+                            f"{case} R={r}")
+                    want = window_ops.window_codes_packed(
+                        packed, validbits, k, canonical, R=r)
+                    _check_codes(window_codes_packed_cuda(
+                        packed, validbits, k, canonical, R=r), want, what)
+                    n_cases += 1
+                # in place into the middle of a larger, marked buffer
+                n = want.numel()
+                mark = -5
+                buf = torch.full((n + 11,), mark, dtype=want.dtype,
+                                 device="cuda")
+                window_codes_packed_cuda(packed, validbits, k, canonical,
+                                         R=trims[-1], out=buf[5 : 5 + n])
+                _check_codes(buf[5 : 5 + n], want, f"{what} out=")
+                if bool((buf[:5] != mark).any() or (buf[5 + n :] != mark)
+                        .any()):
+                    raise AssertionError(f"{what} out=: wrote outside it")
+                del want, buf
+            del packed, validbits
+        torch.cuda.empty_cache()
+    say("window_codes_vs_plain", cases=n_cases, ks=list(C1_KS),
+        max_abs_err=0)
+    return 0
+
+
+def phase_window_codes_timing(seed: int) -> dict:
+    """Median CUDA-event ms of C1 and of its plain version, in turn, into
+    one preallocated output (as the raw store's ingest writes), on random
+    wire whose windows are a genome batch's share valid
+    (TIMED_VALID[-1]), at the shapes of C1_TIMED, beside the bound: the
+    wire read once and the codes written once at the card's memory rate
+    (one operation a slot at its 32-bit rate is far less).  No one PyTorch
+    call computes the same."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    timing = {}
+    for name, B, L, k, canonical in C1_TIMED:
+        shape = (B, L + k - 1)
+        R = shape[1]
+        packed, validbits = _pack_wire(_c1_rows(
+            "random", shape, gen, invalid=1 - TIMED_VALID[-1] ** (1 / k)))
+        out = torch.empty(window_ops.packed_slots(B, packed.shape[1], k, R),
+                          dtype=window_ops.code_dtype(k), device="cuda")
+        fns = {
+            "kernel": lambda: window_codes_packed_cuda(
+                packed, validbits, k, canonical, R=R, out=out),
+            "plain": lambda: window_ops.window_codes_packed(
+                packed, validbits, k, canonical, R=R, out=out),
+        }
+        want = fns["plain"]().clone()
+        _check_codes(fns["kernel"](), want, f"C1 timing {name}")
+        valid = float((want != window_ops.sentinel(want.dtype))
+                      .float().mean())
+        t = _time_alternating(fns)
+        bound = _bound(packed.nbytes + validbits.nbytes + out.nbytes,
+                       out.numel())
+        timing[name] = {**t, "bound": bound, "shape": list(shape), "k": k,
+                        "canonical": canonical, "slots": out.numel(),
+                        "valid_share": valid,
+                        "share_of_bound": bound["bound_ms"]
+                        / t["kernel"]["ms"]}
+        del packed, validbits, out, want
+        torch.cuda.empty_cache()
+    say("window_codes_timing", timing=timing)
+    return timing
+
+
 def phase_window_threshold(seed: int) -> None:
     """K2 from the wire with block-private and with global bins, timed in
     turn on both sides of the wrappers' choice (`private_bins`): batches
@@ -1096,7 +1247,24 @@ SORT_LONG = _LongRows()
 WRAPPERS = {"histogram_cuda": histogram_cuda,
             "fused_window_histogram_cuda": fused_window_histogram_cuda,
             "sort_rows_cuda": sort_rows_cuda,
-            "sort_rows_cuda_long": SORT_LONG}
+            "sort_rows_cuda_long": SORT_LONG,
+            "window_codes_packed_cuda": window_codes_packed_cuda}
+C1 = "window_codes_packed_cuda"
+
+
+class _PlainExtraction:
+    """Sends the sparse ingest's extraction to the plain version
+    (`ops/window.window_codes_packed`) in place of C1, by swapping the
+    name that `counter.ingest` calls: with the plain row sort, a CLI run
+    then takes the all-plain route, with no knob in the program."""
+
+    def __enter__(self):
+        self._orig = counter_mod.window_codes_packed_cuda
+        counter_mod.window_codes_packed_cuda = window_ops.window_codes_packed
+        return self
+
+    def __exit__(self, *exc):
+        counter_mod.window_codes_packed_cuda = self._orig
 
 
 class _RowSortTap:
@@ -1163,7 +1331,10 @@ def _sha256_and_delete(path: str) -> tuple:
 
 def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
     """The 256 Mbase genome through the CLI at k=21 --canonical and
-    k=15: K3 on every row sort, outputs equal to the plain row sort's."""
+    k=15: C1 on every ingest and K3 on every row sort, outputs equal to
+    the all-plain route's (the plain row sort, and the plain extraction
+    by `_PlainExtraction`).  -> (K3 launches, of them on long rows, C1
+    launches, the runs)."""
     runs = []
     with _RowSortTap() as tap:
         tap.timed = True
@@ -1171,30 +1342,40 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
         sort_rows_cuda.long_launches = 0
         histogram_cuda.launches = 0
         fused_window_histogram_cuda.launches = 0
+        window_codes_packed_cuda.launches = 0
         for k, extra in SPARSE_RUNS:
             digests = {}
             for row_sort in ("auto", "plain"):
                 out = os.path.join(tmp, f"sparse_k{k}_{row_sort}.tsv")
                 launches0, calls0 = sort_rows_cuda.launches, tap.calls
+                c1_0 = window_codes_packed_cuda.launches
                 tap.sort_ms()
-                stats, wall = run_cli(
-                    ["count", "-i", fasta, "-k", str(k), "--batch-rows",
-                     "1024", "--chunk-len", "65536", "--device", "cuda",
-                     "-o", out, "--stats", "json"] + extra,
-                    row_sort=row_sort,
-                )
+                with (_PlainExtraction() if row_sort == "plain"
+                      else contextlib.nullcontext()):
+                    stats, wall = run_cli(
+                        ["count", "-i", fasta, "-k", str(k), "--batch-rows",
+                         "1024", "--chunk-len", "65536", "--device", "cuda",
+                         "-o", out, "--stats", "json"] + extra,
+                        row_sort=row_sort,
+                    )
                 sort_ms = tap.sort_ms()
                 launched = sort_rows_cuda.launches - launches0
+                c1 = window_codes_packed_cuda.launches - c1_0
                 sorts = tap.calls - calls0
                 want = sorts if row_sort == "auto" else 0
-                if sorts == 0 or launched != want:
+                want_c1 = stats["batches"] if row_sort == "auto" else 0
+                if sorts == 0 or launched != want or c1 != want_c1:
                     raise AssertionError(
                         f"k={k} row_sort={row_sort}: {launched} K3 launches "
-                        f"for {sorts} row sorts"
+                        f"for {sorts} row sorts, {c1} C1 launches for "
+                        f"{stats['batches']} batches"
                     )
                 digest, size = _sha256_and_delete(out)
                 digests[row_sort] = digest
                 run = {"k": k, "args": extra, "row_sort": row_sort,
+                       "extraction": ("C1" if row_sort == "auto"
+                                      else "plain"),
+                       "c1_launches": c1,
                        "row_sorts": sorts, "launches": launched,
                        "row_sort_device_ms": sort_ms,
                        "batches": stats["batches"], "bases": stats["bases"],
@@ -1208,8 +1389,8 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 torch.cuda.empty_cache()
             if digests["auto"] != digests["plain"]:
                 raise AssertionError(
-                    f"k={k} {extra}: K3 output differs from the plain row "
-                    "sort's output"
+                    f"k={k} {extra}: the output of C1 and K3 differs from "
+                    "the all-plain route's (plain extraction and row sort)"
                 )
             say("sparse_main_path_identical", k=k, args=extra,
                 sha256=digests["auto"])
@@ -1219,7 +1400,8 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
             raise AssertionError(
                 f"a plain count sorted {sort_rows_cuda.long_launches} rows "
                 "longer than a tile (no dedup expected)")
-    return sort_rows_cuda.launches, sort_rows_cuda.long_launches, runs
+    return (sort_rows_cuda.launches, sort_rows_cuda.long_launches,
+            window_codes_packed_cuda.launches, runs)
 
 
 def phase_sparse_device_step(fasta: str) -> None:
@@ -1236,12 +1418,20 @@ def phase_sparse_device_step(fasta: str) -> None:
     batches.close()
     n = counter_mod.batch_slots(batch, k, cfg.row_len)
     out = torch.empty(n, dtype=torch.int64, device="cuda")
+    plain = torch.empty_like(out)
     ingest_ms = _median_ms(
         lambda: counter_mod.ingest(out, batch, k, True, cfg.row_len),
         reps=10)
+    plain_ingest_ms = _median_ms(
+        lambda: window_ops.window_codes_packed(*batch, k, True,
+                                              R=cfg.row_len, out=plain),
+        reps=10)
+    if not torch.equal(out, plain):
+        raise AssertionError("staged k=21 batch: C1's ingest differs from "
+                             "the plain extraction's")
     valid_share = float((out != window_ops.sentinel(torch.int64))
                         .float().mean())
-    del out
+    del out, plain
     comps = []
     with _RowSortTap() as tap:
         tap.timed = True
@@ -1251,6 +1441,8 @@ def phase_sparse_device_step(fasta: str) -> None:
             torch.cuda.synchronize()
             tap.sort_ms()
             calls0, launches0 = tap.calls, sort_rows_cuda.launches
+            # the caching allocator's new segments (cudaMalloc calls)
+            seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
             t0 = time.perf_counter()
             state = counter.compact(state)
             torch.cuda.synchronize()
@@ -1258,6 +1450,8 @@ def phase_sparse_device_step(fasta: str) -> None:
             comps.append({"ms": ms, "row_sort_device_ms": tap.sort_ms(),
                           "row_sorts": tap.calls - calls0,
                           "launches": sort_rows_cuda.launches - launches0,
+                          "new_segments": torch.cuda.memory_stats()
+                          .get("segment.all.allocated", 0) - seg0,
                           "store": list(state.store[0].shape)})
         sorts = [c["row_sorts"] for c in comps]
         if sorts[0] != 1 or 2 not in sorts or any(
@@ -1270,6 +1464,7 @@ def phase_sparse_device_step(fasta: str) -> None:
         finalize_ms = 1e3 * (time.perf_counter() - t0)
     say("sparse_device_step", k=k, canonical=True, batch=list(PROD_SHAPE),
         slots=n, valid_share=valid_share, ingest_ms=ingest_ms,
+        plain_ingest_ms=plain_ingest_ms,
         ingest_bases_per_s=PROD_SHAPE[0] * PROD_SHAPE[1] / ingest_ms * 1e3,
         compactions=comps, finalize_ms=finalize_ms,
         finalize_entries=entries)
@@ -1471,15 +1666,16 @@ def phase_stream(tmp: str, seed: int) -> dict:
             or launched["sort_rows_cuda_long"]
             or len(saves["files"]) != 3
             or launched["histogram_cuda"]
-            or launched["fused_window_histogram_cuda"]):
+            or launched["fused_window_histogram_cuda"]
+            or launched[C1] != full["batches"]):
         raise AssertionError(
             f"sparse stream: launches {launched} for {sorts.calls} row "
-            f"sorts ({SPARSE_STREAM_SORTS} expected) and "
-            f"{len(saves['files'])} checkpoints")
+            f"sorts ({SPARSE_STREAM_SORTS} expected), {full['batches']} "
+            f"batches and {len(saves['files'])} checkpoints")
     digest, size = _hashed(out, want["sparse"], "sparse stream")
     say("stream_sparse", args=STREAM_SPARSE, batches=full["batches"],
-        k3_launches=k3, row_sorts=sorts.calls, checkpoints=saves,
-        checkpoint_s=saves["seconds"], wall_s=wall,
+        k3_launches=k3, c1_launches=launched[C1], row_sorts=sorts.calls,
+        checkpoints=saves, checkpoint_s=saves["seconds"], wall_s=wall,
         cli_wall_s=full["wall_s"], phases=full["phases"], out_bytes=size,
         sha256=digest, identical_to_count=True)
     shutil.rmtree(ck)
@@ -1530,9 +1726,11 @@ def phase_stream(tmp: str, seed: int) -> dict:
             f"spill: {len(tap.calls)} runs written, {left} left in the dir")
     # the dedup before each spill decision sorts the store as one row
     if (launched["sort_rows_cuda"] != sorts.calls
-            or not launched["sort_rows_cuda_long"]):
+            or not launched["sort_rows_cuda_long"]
+            or launched[C1] != stats["batches"]):
         raise AssertionError(
-            f"count --spill: launches {launched} for {sorts.calls} row sorts")
+            f"count --spill: launches {launched} for {sorts.calls} row sorts "
+            f"and {stats['batches']} batches")
     digest, size = _hashed(out, want["sparse"], "count --spill")
     ph = stats["phases"]
     say("spill_count", args=STREAM_SPARSE + SPILL_FLAGS, runs=tap.calls,
@@ -1544,7 +1742,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
         merge_blocks=ph["finalize/merge"]["calls"],
         k3_launches=launched["sort_rows_cuda"],
         k3_long_launches=launched["sort_rows_cuda_long"],
-        row_sorts=sorts.calls, wall_s=wall,
+        c1_launches=launched[C1], row_sorts=sorts.calls, wall_s=wall,
         cli_wall_s=stats["wall_s"], bases_per_s=stats["bases_per_s"],
         phases=ph, out_bytes=size, sha256=digest, identical_to_count=True,
         run_files_left=0)
@@ -1836,6 +2034,7 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
     histogram_cuda.launches = 0
     fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = 0
+    window_codes_packed_cuda.launches = 0
     for k, extra in ((8, []), (8, ["--canonical"]), (10, [])):
         want_bytes = None
         # each route once (the mirrored second pass went when the stream
@@ -1878,8 +2077,8 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
         say("main_path_identical", k=k, args=extra, runs=len(order),
             bytes=len(want_bytes),
             sha256=hashlib.sha256(want_bytes).hexdigest())
-    if sort_rows_cuda.launches:
-        raise AssertionError("the dense path launched the row sort")
+    if sort_rows_cuda.launches or window_codes_packed_cuda.launches:
+        raise AssertionError("the dense path launched the row sort or C1")
     return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
             runs)
 
@@ -1907,6 +2106,8 @@ from findkmer_torch.io import native
 from findkmer_torch.ops.cuda import _build
 from findkmer_torch.ops.cuda.histogram_kernel import histogram_cuda
 from findkmer_torch.ops.cuda.rowsort_kernel import sort_rows_cuda
+from findkmer_torch.ops.cuda.window_codes_kernel import (
+    window_codes_packed_cuda)
 from findkmer_torch.ops.cuda.window_histogram_kernel import (
     fused_window_histogram_cuda)
 import_s = time.perf_counter() - t0
@@ -1927,6 +2128,7 @@ report = {"package": findkmer_torch.__file__, "csrc": str(_build.CSRC),
 for name, flags in runs:
     histogram_cuda.launches = fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = sort_rows_cuda.long_launches = 0
+    window_codes_packed_cuda.launches = 0
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
@@ -1942,7 +2144,8 @@ for name, flags in runs:
             "fused_window_histogram_cuda":
                 fused_window_histogram_cuda.launches,
             "sort_rows_cuda": sort_rows_cuda.launches,
-            "sort_rows_cuda_long": sort_rows_cuda.long_launches}}
+            "sort_rows_cuda_long": sort_rows_cuda.long_launches,
+            "window_codes_packed_cuda": window_codes_packed_cuda.launches}}
 report["jax_package"] = "findkmer_tpu" in sys.modules
 print(json.dumps(report))
 """
@@ -2120,9 +2323,10 @@ def write_records(path: str, seed: int, n: int) -> int:
 
 def phase_entry_points(tmp: str, seed: int) -> dict:
     """selftest on the card; count --per-record on the card against the
-    CPU; count --per-input against single counts.  -> K2 launches of the
-    runs on the card."""
-    fused_window_histogram_cuda.launches = 0
+    CPU; count --per-input against single counts.  -> {kernel: its
+    launches in the --per-record runs on the card}, the counts set to 0
+    just before each and read just after it."""
+    per_record = dict.fromkeys(WRAPPERS, 0)
     out, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -2139,17 +2343,27 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
         got = {}
         for dev in ("cuda", "cpu"):
             path = os.path.join(tmp, f"per_record_{dev}.txt")
-            k2 = fused_window_histogram_cuda.launches
+            for w in WRAPPERS.values():
+                w.launches = 0
             stats, wall = run_cli(
                 ["count", "-i", records, "-k", str(k), "--per-record",
                  "--device", dev, "-o", path, "--stats", "json"]
                 + PER_RECORD_GEOM + extra)
+            launched = {name: w.launches for name, w in WRAPPERS.items()}
+            if dev == "cuda":
+                for name, n in launched.items():
+                    per_record[name] += n
             got[dev] = _read_and_delete(path)
             say("per_record", k=k, args=extra, device=dev,
                 records=stats["records"], bases=bases, wall_s=wall,
                 records_per_s=stats["records"] / wall,
-                k2_launches=fused_window_histogram_cuda.launches - k2,
-                out_bytes=len(got[dev]))
+                k2_launches=launched["fused_window_histogram_cuda"],
+                c1_launches=launched[C1], out_bytes=len(got[dev]))
+            # C1 on every sparse batch on the card; nothing on the CPU
+            if (launched[C1] > 0) != (dev == "cuda" and k > 10) or (
+                    dev == "cpu" and any(launched.values())):
+                raise AssertionError(
+                    f"--per-record k={k} on {dev}: launches {launched}")
         if (got["cuda"] != got["cpu"]
                 or got["cuda"].count(b">") != PER_RECORD_RECORDS):
             raise AssertionError(
@@ -2176,7 +2390,7 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
                     "single count of its input")
         say("per_input", k=k, args=extra, inputs=len(inputs),
             identical=True)
-    return fused_window_histogram_cuda.launches
+    return per_record
 
 
 FILTER_REF_BASES = 8 << 20     # a pair of bacterial genomes
@@ -2357,12 +2571,18 @@ def phase_filter_step(spec_path: str, seqs: np.ndarray) -> dict:
     packed, validbits = (torch.from_numpy(a).cuda()
                          for a in native.pack_rows(work, B, L, R))
     members = dev.members
-    codes = window_ops.window_codes_packed(packed, validbits, k, True, R=R)
+    codes = window_codes_packed_cuda(packed, validbits, k, True, R=R)
+    if not torch.equal(codes, window_ops.window_codes_packed(
+            packed, validbits, k, True, R=R)):
+        raise AssertionError("filter batch: C1 differs from the plain "
+                             "extraction")
     hit = filter_device.member_hits(members, codes)
     parts = {
         "step": (lambda: filter_device._filter_step(
             members, packed, validbits, k, True, R, L)),
-        "extraction": (lambda: window_ops.window_codes_packed(
+        "extraction": (lambda: window_codes_packed_cuda(
+            packed, validbits, k, True, R=R)),
+        "extraction_plain": (lambda: window_ops.window_codes_packed(
             packed, validbits, k, True, R=R)),
         "membership": lambda: filter_device.member_hits(members, codes),
         "bitmap": lambda: filter_device.hit_bitmap(hit, B, L),
@@ -2371,6 +2591,7 @@ def phase_filter_step(spec_path: str, seqs: np.ndarray) -> dict:
     bitmap = dev.need // 8
     moved = {"step": wire + dev.member_bytes + bitmap,
              "extraction": wire + codes.nbytes,
+             "extraction_plain": wire + codes.nbytes,
              "membership": codes.nbytes + dev.member_bytes + hit.nbytes,
              "bitmap": hit.nbytes + bitmap}
     out = {}
@@ -2463,16 +2684,20 @@ def phase_filter(tmp: str, seed: int) -> dict:
                 say("filter_run", **run, identical_to_host=True)
                 results.append(run)
     launched = {name: fn.launches for name, fn in WRAPPERS.items()}
-    if any(launched.values()):
-        raise AssertionError(f"the filter path launched {launched}")
+    steps_run = sum(r["device_steps"] for r in results)
+    if (any(n for name, n in launched.items() if name != C1)
+            or launched[C1] != steps_run):
+        raise AssertionError(f"the filter path launched {launched} in "
+                             f"{steps_run} device steps")
     step = phase_filter_step(spec[21], staged)
     for path in list(p.values()) + list(spec.values()):
         os.unlink(path)
     say("filter_launches", **launched,
-        note="the filter path is plain torch (extraction, searchsorted, "
-             "bitmap): none of K1-K3 runs there",
-        runs=len(results), step_ms=step["step"]["ms"],
-        seconds=time.perf_counter() - t0)
+        note="C1 once a device step (the extraction); membership "
+             "(searchsorted) and bitmap are plain torch; none of K1-K3 "
+             "runs there",
+        device_steps=steps_run, runs=len(results),
+        step_ms=step["step"]["ms"], seconds=time.perf_counter() - t0)
     return launched
 
 
@@ -2781,6 +3006,7 @@ def phase_tools(tmp: str, seed: int) -> dict:
             row_sorts > 0 and launched["sort_rows_cuda"] == row_sorts
             and launched["histogram_cuda"] == 0 and k2 >= 2
             and launched["fused_window_histogram_cuda"] == k2),
+        "C1 on the k=21 counts": launched[C1] > 0,
     }
     failed = [c for c, ok in checks.items() if not ok]
     say("tools_checks", passed=len(checks) - len(failed), failed=failed,
@@ -2967,7 +3193,7 @@ def phase_mesh(tmp: str, seed: int) -> dict:
     # the spill leg dedups its shards' stores as long rows
     if (launched["fused_window_histogram_cuda"] == 0 or sorts == 0
             or launched["sort_rows_cuda"] != sorts
-            or not launched["sort_rows_cuda_long"]):
+            or not launched["sort_rows_cuda_long"] or not launched[C1]):
         raise AssertionError(f"mesh phase: launches {launched} for {sorts} "
                              "row sorts")
     say("mesh_launches", **launched, row_sorts=sorts)
@@ -3093,6 +3319,7 @@ def phase_bench() -> dict:
         line = json.loads(out.getvalue().strip().splitlines()[-1])
         k2 = launched["fused_window_histogram_cuda"]
         k3 = launched["sort_rows_cuda"]
+        c1 = launched[C1]
         check = {}
         if "--phases" in argv:
             if sorted(line["phases"]) != BENCH_PHASES:
@@ -3109,9 +3336,11 @@ def phase_bench() -> dict:
             check = _bench_check(bench.steps, bench.runs, dev)
             check["staged"] = {key: kw[key] for key in (
                 "k", "batch_rows", "chunk_len", "steps", "canonical")}
-        # K2 once a step (dense), K3 on every row sort (sparse), K1 never
+        # K2 once a step (dense), C1 on every ingest and K3 on every row
+        # sort (sparse), K1 never
         if (k2 != want_k2 or launched["histogram_cuda"] or k3 != sorts
-                or (line["k"] > 10) != (k3 > 0)):
+                or (line["k"] > 10) != (k3 > 0)
+                or (line["k"] > 10) != (c1 > 0)):
             raise AssertionError(f"bench {argv}: launches {launched}, "
                                  f"{sorts} row sorts, K2 expected {want_k2}")
         for key, n in launched.items():
@@ -3120,7 +3349,7 @@ def phase_bench() -> dict:
         say("bench_run", run=name, argv=argv, result=line,
             table=[ln for ln in err.getvalue().splitlines()
                    if ln.startswith("#")],
-            k2_launches=k2, k3_launches=k3,
+            k2_launches=k2, k3_launches=k3, c1_launches=c1,
             k3_long_launches=launched["sort_rows_cuda_long"],
             row_sorts=sorts, peak_device_bytes=peak, cli_wall_s=wall,
             **check)
@@ -3138,7 +3367,7 @@ def main() -> int:
                                        "filter", "tools", "mesh", "spill",
                                        "installed", "bench"],
                     help="run only the row sort's phases (K3), only the "
-                         "histogram kernels' (K1 and K2), only the "
+                         "window kernels' (K1, K2 and C1), only the "
                          "restartable stream's, only read filtering's, "
                          "only the spectrum tools', only the mesh's, only "
                          "the `count --spill` A/B (--against), only the "
@@ -3190,6 +3419,7 @@ def main() -> int:
     if args.only == "window":
         phase_ptxas("histogram.cu")
         phase_ptxas("window_histogram.cu")
+        phase_ptxas("window_codes.cu")
         phase_sass("window_histogram.cu", WINDOW_SASS)
     max_err = phase_kernel(args.seed)
     timing = phase_timing(args.seed)
@@ -3197,6 +3427,8 @@ def main() -> int:
     k2_timing = phase_window_timing(args.seed)
     phase_window_threshold(args.seed)
     atomic_rates = phase_atomic_rate()
+    c1_err = phase_window_codes(args.seed)
+    c1_timing = phase_window_codes_timing(args.seed)
     if args.only == "window":
         return 0
     sort_err = phase_rowsort_vs_plain(args.seed)
@@ -3205,8 +3437,8 @@ def main() -> int:
         fasta = phase_genome(tmp, args.seed)
         launches, k2_launches, runs = phase_main_path(fasta, tmp,
                                                       args.profile)
-        sort_launches, long_launches, sparse_runs = phase_sparse_main_path(
-            tmp, fasta)
+        sort_launches, long_launches, c1_launches, sparse_runs = \
+            phase_sparse_main_path(tmp, fasta)
         phase_sparse_device_step(fasta)
         dense8 = next(r for r in runs if r["k"] == 8 and not r["args"]
                       and r["route"] == "fused")
@@ -3216,15 +3448,16 @@ def main() -> int:
             "k8": {"sha256": dense8["sha256"], "launches": {
                 "histogram_cuda": dense8["k1_launches"],
                 "fused_window_histogram_cuda": dense8["k2_launches"],
-                "sort_rows_cuda": 0, "sort_rows_cuda_long": 0}},
+                "sort_rows_cuda": 0, "sort_rows_cuda_long": 0, C1: 0}},
             "k21_canonical": {"sha256": sparse21["sha256"], "launches": {
                 "histogram_cuda": 0, "fused_window_histogram_cuda": 0,
                 "sort_rows_cuda": sparse21["launches"],
-                "sort_rows_cuda_long": 0}}}, smi)
+                "sort_rows_cuda_long": 0,
+                C1: sparse21["c1_launches"]}}}, smi)
         os.unlink(fasta)
         phase_oracle(tmp)
         stream_launches = phase_stream(tmp, args.seed)
-        phase_entry_points(tmp, args.seed)
+        per_record_launches = phase_entry_points(tmp, args.seed)
         filter_launches = phase_filter(tmp, args.seed)
         tools_launches = phase_tools(tmp, args.seed)
         mesh_launches = phase_mesh(tmp, args.seed)
@@ -3232,6 +3465,7 @@ def main() -> int:
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
+    c21 = c1_timing["prod_k21_canonical"]
 
     def ms_of(case: dict) -> dict:
         return {name: t["ms"] for name, t in case.items() if "ms" in t}
@@ -3241,10 +3475,12 @@ def main() -> int:
 
     def launches_of(name: str, count: int) -> dict:
         """The `count` paths' launches, each stream-phase run's own, the
-        filter runs' (none), the spectrum tools' (K2 and K3), the mesh's
-        (K2 and K3), the installed package's (K2 and K3) and `bench`'s
-        (K2 and K3)."""
-        by_run = {**stream_launches[name], "filter": filter_launches[name],
+        --per-record runs' on the card, the filter runs' (C1 alone), the
+        spectrum tools', the mesh's, the installed package's and
+        `bench`'s."""
+        by_run = {**stream_launches[name],
+                  "per_record": per_record_launches[name],
+                  "filter": filter_launches[name],
                   "tools": tools_launches[name],
                   "mesh": mesh_launches[name],
                   "installed": installed_launches[name],
@@ -3320,6 +3556,32 @@ def main() -> int:
         "sparse_bases_per_s": {
             f"k{r['k']}{''.join(r['args'])}": r["bases_per_s"]
             for r in sparse_runs if r["row_sort"] == "auto"},
+        "card": smi,
+    }, {
+        "name": C1,
+        "route": "cuda",
+        "source": "findkmer_torch/csrc/window_codes.cu",
+        # an XLA fusion in the JAX package (jit of the sparse ingest),
+        # not a Pallas kernel
+        "replaces": "findkmer_tpu/ops/window.py:201",
+        **launches_of(C1, c1_launches),
+        "max_abs_err": c1_err,
+        "ms": c21["kernel"]["ms"],
+        "plain_ms": c21["plain"]["ms"],
+        **bound_of(c21["bound"]),
+        "library_ms": None,
+        "plain": "ops/window.window_codes_packed: 16 residues of "
+                 "plain-torch elementwise ops into the same buffer",
+        "shape": c21["shape"],
+        "k": 21,
+        "canonical": True,
+        "by_shape": {name: {"shape": t["shape"], "k": t["k"],
+                            "canonical": t["canonical"],
+                            "ms": t["kernel"]["ms"],
+                            "plain_ms": t["plain"]["ms"],
+                            **bound_of(t["bound"]),
+                            "share_of_bound": t["share_of_bound"]}
+                     for name, t in c1_timing.items()},
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ the same hit bitmap:
   host   reads -> 'N'-joined stream -> packed 2-bit wire (0.375 B/base,
          native.pack_rows / pipeline._numpy_pack_rows), staged to the
          device through one reused `_PinnedStager`
-  device window_codes_packed (the sparse counter's extraction, plain
-         torch), then membership of every window code in the sorted
-         member codes: torch.searchsorted, the index clamped, one gather,
+  device the sparse counter's extraction (C1, `ops/cuda/
+         window_codes_kernel.py`; its plain version on the CPU), then
+         membership of every window code in the sorted member codes:
+         torch.searchsorted, the index clamped, one gather,
          an equality test.  (The JAX package sorts members and queries
          together because gathers are slow on a TPU; on a GPU the binary
          search is the cheaper of the two.)  The hits, mapped from the
@@ -36,6 +37,9 @@ from findkmer_torch.device import resolve_device
 from findkmer_torch.filter import _CODE_LUT, _cumsum01, _read_spans
 from findkmer_torch.io import native
 from findkmer_torch.ops import window as window_ops
+from findkmer_torch.ops.cuda.window_codes_kernel import (
+    window_codes_packed_cuda,
+)
 from findkmer_torch.pipeline import (
     _numpy_pack_rows,
     _PinnedStager,
@@ -79,8 +83,7 @@ def _filter_step(members, packed, validbits, k: int, canonical: bool,
     members: the sorted member codes in `code_dtype(k)`.  Window slot s of
     row b covers the joined stream position b*L + s - (k-1) relative to
     this batch's first owned base."""
-    codes = window_ops.window_codes_packed(packed, validbits, k, canonical,
-                                           R=R)
+    codes = window_codes_packed_cuda(packed, validbits, k, canonical, R=R)
     return hit_bitmap(member_hits(members, codes), packed.shape[0], L)
 
 

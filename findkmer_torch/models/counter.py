@@ -26,8 +26,9 @@ The histogram is picked from `Config.hist` as in the JAX package:
 Sparse (k above the dense limit, or table_mode="sparse"): the JAX
 package's log-structured store.
   * step: extract the batch's window codes straight from the packed wire
-    (`window_codes_packed`) into the raw buffer at the fill offset: no
-    sort, no host sync.
+    into the raw buffer at the fill offset: no sort, no host sync.  The
+    extraction is C1 (`ops/cuda/window_codes_kernel.py`) on CUDA, its
+    plain version (`ops/window.window_codes_packed`) on the CPU.
   * compaction (the raw buffer would pass sparse_compact_entries, or a
     finalize / checkpoint): one row-wise sort of [store + raw] and a
     run-length encoding into a (G, cols) store of sorted rows, where
@@ -72,6 +73,9 @@ from findkmer_torch.ops import histogram as hist_ops
 from findkmer_torch.ops import sparse as sparse_ops
 from findkmer_torch.ops import window as window_ops
 from findkmer_torch.ops.cuda.histogram_kernel import MAX_K, add_counts_cuda
+from findkmer_torch.ops.cuda.window_codes_kernel import (
+    window_codes_packed_cuda,
+)
 from findkmer_torch.ops.cuda.window_histogram_kernel import (
     add_window_counts_cuda,
 )
@@ -121,8 +125,8 @@ def ingest(out: torch.Tensor, batch, k: int, canonical: bool, R: int):
     """Write one batch's sentinel-masked window codes into `out` (a slice
     of the raw buffer, exactly `batch_slots` long)."""
     if isinstance(batch, (tuple, list)):
-        window_ops.window_codes_packed(batch[0], batch[1], k, canonical,
-                                       R=R, out=out)
+        window_codes_packed_cuda(batch[0], batch[1], k, canonical, R=R,
+                                 out=out)
         return
     codes, valid = window_ops.window_codes(batch, k, canonical)
     out.copy_(torch.where(valid, codes,

@@ -165,6 +165,10 @@ def load() -> ctypes.CDLL:
         ctypes.c_int, ptr,
     ]
     lib.fk_window_histogram_packed.restype = ctypes.c_int
+    lib.fk_window_codes_packed.argtypes = [
+        ptr, ptr, i64, i64, i64, i64, ptr, ctypes.c_int, ctypes.c_int, ptr,
+    ]
+    lib.fk_window_codes_packed.restype = ctypes.c_int
     lib.fk_atomic_rate.argtypes = [
         ptr, i64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(i64), ptr,

@@ -11,8 +11,11 @@ Counterpart of `findkmer_tpu/ops/window.py` (same layouts, same results):
 together, and the canonical code min(code, revcomp) in the same pass.
 `window_codes_packed` (the sparse path's extraction) reads the 2-bit
 wire words directly instead.  Plain tensor ops on whatever device the
-input lies on; no kernel of their own (the JAX package leaves the same
-work to XLA).
+input lies on (the JAX package leaves the same work to XLA).
+`window_codes_packed` is also the plain version of C1, the kernel that
+extracts on CUDA (`ops/cuda/window_codes_kernel.py`): the counter and
+the device filter call C1's wrapper, which runs this function for CPU
+tensors.
 
 A code is one signed integer: int32 for k <= 15, int64 for 16 <= k <= 31
 (the JAX package splits the wide codes into a (hi, lo) uint32 pair).
@@ -151,8 +154,10 @@ def window_codes_packed(
     of the validity bitstream.
 
     Returns ONE flat tensor of `code_dtype(k)` in residue-interleaved
-    order (residue, row, word), invalid slots set to the sentinel:
-    callers must not depend on the order (the sparse store sorts).
+    order (residue, row, word), invalid slots set to the sentinel.  The
+    sparse store does not depend on the order (it sorts); the device
+    filter's hit bitmap does (`filter_device.hit_bitmap`), so C1 keeps
+    it slot for slot.
     R, the true row length, trims the word streams to the row's windows
     (`packed_slots`).  `out`, when given, is filled in place (the raw
     store appends a batch without an intermediate copy).

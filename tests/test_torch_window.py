@@ -18,6 +18,7 @@ from findkmer_tpu.config import Config as JaxConfig
 from findkmer_tpu.ops import window as jw
 from findkmer_torch import Config
 from findkmer_torch.ops import window as tw
+from findkmer_torch.ops.cuda import window_codes_kernel as wck
 
 SPARSE_KS = [11, 15, 16, 21, 23, 24, 28, 29, 31]
 JAX_SENT = 0xFFFFFFFF
@@ -143,17 +144,25 @@ def test_window_codes_wide_k_vs_jax(k, canonical):
         assert jv.any() and not jv.all()
 
 
+# the plain version, and C1's wrapper (on CPU tensors: its plain version)
+PACKED_ENTRIES = {"plain": tw.window_codes_packed,
+                  "wrapper": wck.window_codes_packed_cuda}
+
+
+@pytest.mark.parametrize("entry", list(PACKED_ENTRIES))
 @pytest.mark.parametrize("canonical", [False, True], ids=["fwd", "canon"])
 @pytest.mark.parametrize("k", SPARSE_KS)
-def test_window_codes_packed_vs_jax(k, canonical):
+def test_window_codes_packed_vs_jax(k, canonical, entry):
     """Packed rows: the same slots in the same order, the sorted valid
-    codes equal, and equal to the raw-row extraction's valid codes."""
+    codes equal, and equal to the raw-row extraction's valid codes; by the
+    plain version and by C1's wrapper alike."""
+    extract = PACKED_ENTRIES[entry]
     cfg, batches = _batches(k + 100, k, packed=True, n=900)
     assert len(batches) > 1
     R = cfg.row_len
     for packed, validbits in batches:
         tp, tvb = torch.from_numpy(packed), torch.from_numpy(validbits)
-        got = tw.window_codes_packed(tp, tvb, k, canonical, R=R)
+        got = extract(tp, tvb, k, canonical, R=R)
         assert got.dtype == tw.code_dtype(k)
         assert got.shape == (tw.packed_slots(*packed.shape, k, R),)
         planes = jw.window_codes_packed(jnp.asarray(packed),
@@ -168,8 +177,7 @@ def test_window_codes_packed_vs_jax(k, canonical):
         )
         # `out` fills a slice of a larger buffer in place
         buf = torch.full((got.numel() + 5,), -1, dtype=got.dtype)
-        tw.window_codes_packed(tp, tvb, k, canonical, R=R,
-                               out=buf[2 : 2 + got.numel()])
+        extract(tp, tvb, k, canonical, R=R, out=buf[2 : 2 + got.numel()])
         assert torch.equal(buf[2 : 2 + got.numel()], got)
         assert int(buf[0]) == int(buf[-1]) == -1
 
