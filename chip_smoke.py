@@ -121,15 +121,16 @@ final ok-line is not printed.
      the same run with --device cpu (C1 on every batch of the k=21 run on
      the card, no launch on the CPU); `count --per-input` over three
      inputs, each file equal to a single `count` of that input
- 11. the restartable stream, over a seeded genome of 64 Mbase of its
-     own in batches of 256 x 65536 (five batches, as the main paths'
-     genome makes at 1024 rows, at a quarter of the bytes), every output
-     held by sha256 to a `count` run of the same flags over it.
+ 11. the restartable stream, over a genome of 64 Mbase of its own in
+     batches of 256 x 65536 (five batches, as the main paths' genome
+     makes at 1024 rows): a seeded 16 Mbase genome written four times,
+     so the state holds ~16 M distinct 21-mers; every output held by
+     sha256 to a `count` run of the same flags over it.
      Dense: `stream -k 8 --checkpoint D --checkpoint-every 2` by the
      default step (K2 once a batch) and by the two-stage step (K1 once a
      batch).  Sparse:
      `stream -k 21 --canonical --checkpoint D --checkpoint-every 2`: every
-     row sort a K3 launch, four of them for its three checkpoints; the
+     row sort a K3 launch, five of them for its three checkpoints; the
      file size of each checkpoint, and from `--stats json` the seconds of
      their compactions, copies to the host and compressed writes.  Kill
      and resume: the same sparse stream as a subprocess, SIGKILLed once
@@ -246,6 +247,26 @@ final ok-line is not printed.
      the plain routes on the card, exactly: the dense table equals
      (steps + 1) times the `--hist scatter` histogram of the one batch,
      the finalized sparse store the plain row sort's after the same runs
+ 17. the repository's `bench.py` metrics from the port's driver
+     (`findkmer_torch/bench/driver.py`): `python -m
+     findkmer_torch.bench.driver` as a process of its own, its five lines
+     (the three sparse rates and `finalize_merge_s_k21` on stderr,
+     `bases_per_s_per_chip_k8` last on stdout, `device` the card's name)
+     each printed beside the card; then its `main` again in this process,
+     the kernels' launches counted from 0 around it (K2 once a dense step
+     and its warm-up: 9; C1 once an ingest of each sparse call's two
+     runs: 24; K3 once a compaction: 8, none on long rows; K1 never), the
+     finalize's sub-phases timed, and each staged result held exactly to
+     the plain route on the card: the dense table (steps + 1) times the
+     `--hist scatter` histogram, each sparse store (codes, counts, per-row
+     distinct counts) the all-plain route's (the plain extraction and row
+     sort) after the same two runs, every window counted once, and the
+     512-row call's finalized spectrum (what its timed finalize made)
+     equal to the all-plain route's finalize, its counts summing to the
+     windows.  Then `entry()` (`findkmer_torch/graft_entry.py`): its k=8
+     step at 64 x 1024 on seeded rows, K2 launched once, the table equal
+     to the plain step's; and `dryrun_multichip(2)` on the card: every
+     merge leg over two shards equal to its reference
 
 With --profile, two more phases follow the dense main path: the FASTA
 reader alone over the genome (no encode, no pack), and torch.profiler
@@ -263,7 +284,7 @@ an edit to those kernels; with --only stream phases
 phases 1, 2 and 13; with --only mesh phases 1, 2 and 14; with --only
 installed phases 1, 2 and 15 (the checkout's own two counts of the genome
 made first, to hold the installed ones to); with --only bench phases 1, 2
-and 16; with --only spill [--against
+and 16 and 17; with --only spill [--against
 DIR] phases 1 and 2, then phase 11's `count --spill` as a process of its
 own from this checkout and from DIR (another checkout
 of the port, such as the parent commit unpacked into build/), in turn,
@@ -276,8 +297,9 @@ and C1 (for each its launches on the main paths: the `count` runs, each
 run that phase 11 makes in this process, the `--per-record` runs on the
 card of phase 10, the filter runs of phase 12 (C1 alone), the runs on the
 card of phase 13, the mesh runs of phase 14, the installed package's runs
-of phase 15 and the `bench` runs of phase 16 (`launches_by_path`), each
-counted from 0, and for K3 apart those on rows longer than a tile
+of phase 15, the `bench` runs of phase 16 and the driver and `entry()`
+runs of phase 17 (`launches_by_path`), each counted from 0, and for K3
+apart those on rows longer than a tile
 (`long_launches_by_path`: the dedups of the spill paths, none in a plain
 `count` or `stream`); its ms beside the plain version's, the one library
 call's where there is one, and its bound); the last line is
@@ -1473,9 +1495,13 @@ def phase_sparse_device_step(fasta: str) -> None:
 
 
 # phase 11 runs on a genome of its own, a quarter of the main paths' in
-# bases and in batch rows: the same five batches and checkpoint schedule,
-# and a quarter of the bytes for zlib, which is nearly all of the phase
+# bases and in batch rows (the same five batches and checkpoint schedule,
+# at 256 x 65536), made of one seeded 16 Mbase genome written four times:
+# the state holds ~16 M distinct 21-mers, a quarter of what 64 Mbase of
+# distinct sequence makes, and the checkpoints' zlib, nearly all of the
+# phase, compresses a quarter of the entries
 STREAM_GENOME_BASES = GENOME_BASES // 4
+STREAM_REPEATS = 4
 STREAM_GEOM = ["--batch-rows", "256", "--chunk-len", "65536", "--device",
                "cuda"]
 STREAM_SPARSE = ["-k", "21", "--canonical"]
@@ -1483,8 +1509,9 @@ STREAM_SPARSE = ["-k", "21", "--canonical"]
 # and a store of one batch's distinct 21-mers (~16 M) is over the capacity
 SPILL_FLAGS = ["--sparse-capacity", str(1 << 23),
                "--sparse-compact-entries", str(1 << 24)]
-# row sorts of the sparse stream over the seeded genome (phase_stream)
-SPARSE_STREAM_SORTS = 4
+# row sorts of the sparse stream over the seeded genome (phase_stream):
+# three compactions and two squeezes of the store to its live ladder
+SPARSE_STREAM_SORTS = 5
 STAT_TOTALS = ("records", "bases", "valid_bases", "batches", "rows",
                "h2d_bytes")
 
@@ -1585,7 +1612,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
     killed and resumed streams are processes of their own: not
     counted)."""
     fasta = os.path.join(tmp, "stream_genome.fa")
-    write_genome(fasta, seed + 5, total=STREAM_GENOME_BASES)
+    write_stream_genome(fasta, seed + 5)
     want = {}
     for name, flags in (("dense", ["-k", "8"]), ("sparse", STREAM_SPARSE)):
         out = os.path.join(tmp, f"count_{name}.tsv")
@@ -1655,8 +1682,8 @@ def phase_stream(tmp: str, seed: int) -> dict:
         shutil.rmtree(ck)
 
     # 2. sparse: every row sort of the run is a K3 launch.  Checkpoints
-    # follow batches 2, 4 and 5: three compactions, and the squeeze of the
-    # first table to its live ladder (the later ones are at theirs)
+    # follow batches 2, 4 and 5: three compactions, and two squeezes of
+    # the store to its live ladder
     with _RowSortTap() as sorts:
         full, wall, launched = counted_run(
             "stream_sparse", stream_args(STREAM_SPARSE + ["--stats", "json"]))
@@ -1826,7 +1853,7 @@ def phase_spill_ab(tmp: str, seed: int, against: str) -> dict:
     (`torch.cuda.max_memory_allocated`); every output sha256-equal.
     Without `against`, this checkout four times."""
     fasta = os.path.join(tmp, "stream_genome.fa")
-    write_genome(fasta, seed + 5, total=STREAM_GENOME_BASES)
+    write_stream_genome(fasta, seed + 5)
     trees = {"this": REPO, "against": os.path.abspath(against or REPO)}
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     for tree in set(trees.values()):  # each builds its kernels first
@@ -1893,6 +1920,17 @@ def write_genome(path: str, seed: int, total: int = GENOME_BASES) -> None:
                     s = int(rng.integers(0, max(1, n - ln)))
                     seq[s : s + ln] = fill
             _write_record(f, f"chr{r + 1} seeded record {r + 1}", seq)
+
+
+def write_stream_genome(path: str, seed: int) -> None:
+    """Phase 11's genome: STREAM_GENOME_BASES in all, a seeded genome of
+    a STREAM_REPEATS-th of them written STREAM_REPEATS times in a row."""
+    write_genome(path, seed, total=STREAM_GENOME_BASES // STREAM_REPEATS)
+    with open(path, "rb") as f:
+        once = f.read()
+    with open(path, "wb") as f:
+        for _ in range(STREAM_REPEATS):
+            f.write(once)
 
 
 def _write_record(f, header: str, seq: np.ndarray) -> None:
@@ -3232,13 +3270,15 @@ class _BenchTap:
     """Keeps the keywords, counter and final state of each staged step
     that `bench` runs, by wrapping `bench.steps._dense_run` and
     `_sparse_run`, so that the CLI run's result can be held to the plain
-    route after it."""
+    route after it.  With `finalize_timers`, a step that times its
+    finalize times its sub-phases into them."""
 
-    def __init__(self):
+    def __init__(self, finalize_timers=None):
         from findkmer_torch.bench import steps
 
         self.steps = steps
         self.runs = []
+        self.finalize_timers = finalize_timers
         self._orig = {}
 
     def __enter__(self):
@@ -3246,6 +3286,9 @@ class _BenchTap:
             orig = self._orig[name] = getattr(self.steps, name)
 
             def tapped(*args, _orig=orig, _name=name, **kw):
+                if kw.get("time_finalize") and \
+                        self.finalize_timers is not None:
+                    kw["timers"] = self.finalize_timers
                 out = _orig(*args, **kw)
                 self.runs.append((_name, kw, out[0], out[1]))
                 return out
@@ -3357,6 +3400,201 @@ def phase_bench() -> dict:
     return total
 
 
+# phase 17: the metrics of the repository's bench.py, from the port's driver
+DRIVER_LINES = ("bases_per_s_per_chip_k21_sparse",
+                "bases_per_s_per_chip_k21_canonical",
+                "bases_per_s_per_chip_k15_sparse", "finalize_merge_s_k21",
+                "bases_per_s_per_chip_k8")
+
+
+def _driver_subprocess(smi: str) -> dict:
+    """`python -m findkmer_torch.bench.driver` as a user runs it, in a
+    process of its own -> {metric: its line}; each line printed with the
+    card beside it."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "findkmer_torch.bench.driver"],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"bench driver: rc {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    err = [json.loads(ln) for ln in res.stderr.splitlines()
+           if ln.startswith("{")]
+    out = [json.loads(ln) for ln in res.stdout.splitlines()]
+    names = [d["metric"] for d in err] + [d["metric"] for d in out]
+    if names != list(DRIVER_LINES) or len(out) != 1:
+        raise AssertionError(f"bench driver: lines {names}, stdout {out}")
+    kind = torch.cuda.get_device_name(0)
+    for d in err + out:
+        if not (np.isfinite(d["value"]) and d["value"] > 0) or \
+                d.get("device", kind) != kind:
+            raise AssertionError(f"bench driver: {d}")
+        say("bench_driver_metric", **d, card=smi)
+    lines = {d["metric"]: d for d in err + out}
+    lines["process_wall_s"] = wall
+    return lines
+
+
+def _driver_store_check(steps, run, dev: torch.device) -> dict:
+    """One sparse call's store (kernel route: C1 and K3) against the
+    all-plain route's (the plain extraction and row sort) after the same
+    two runs, compared on the card; exact."""
+    kind, kw, counter, state = run
+    with _PlainExtraction():
+        plain_counter, plain, _ = steps._sparse_run(dev, **{
+            **kw, "row_sort": "plain", "time_finalize": False,
+            "timers": None})[:3]
+    for i, what in enumerate(("codes", "counts")):
+        if not torch.equal(state.store[i], plain.store[i]):
+            bad = int((state.store[i] != plain.store[i]).sum())
+            raise AssertionError(f"bench driver {kw}: {bad} store {what} "
+                                 "differ from the all-plain route's")
+    if state.store_len != plain.store_len or not torch.equal(
+            torch.as_tensor(state.distinct), torch.as_tensor(plain.distinct)):
+        raise AssertionError(f"bench driver {kw}: the store's geometry or "
+                             "per-row distinct counts differ")
+    windows = int(state.store[1].sum(dtype=torch.int64))
+    want = kw["batch_rows"] * kw["chunk_len"] * kw["steps"]
+    if windows != want:  # the wire has no N: every window counts
+        raise AssertionError(f"bench driver {kw}: {windows} windows, "
+                             f"{want} expected")
+    checked = {"plain": "plain extraction + row_sort=plain",
+               "distinct_by_row_sum": int(torch.as_tensor(state.distinct)
+                                          .sum()),
+               "windows": windows, "store_shape": list(state.store[0].shape),
+               "max_abs_err": 0}
+    if kw.get("time_finalize"):
+        # the timed finalize's spectrum (finalize leaves the state as it
+        # was, so this is what the timed call made) against the all-plain
+        # route's finalize of its own store
+        t0 = time.perf_counter()
+        got_codes, got_counts = counter.finalize(state)
+        want_codes, want_counts = plain_counter.finalize(plain)
+        if not (np.array_equal(got_codes, want_codes)
+                and np.array_equal(got_counts, want_counts)):
+            raise AssertionError(f"bench driver {kw}: the finalized "
+                                 "spectrum differs from the all-plain "
+                                 "route's")
+        total = int(got_counts.sum(dtype=np.int64))
+        if total != want:
+            raise AssertionError(f"bench driver {kw}: the finalized "
+                                 f"spectrum counts {total} windows, {want} "
+                                 "expected")
+        checked.update(finalized_distinct=int(got_codes.size),
+                       finalized_windows=total,
+                       finalize_check_s=time.perf_counter() - t0)
+    return checked
+
+
+def phase_bench_driver(smi: str) -> dict:
+    """The port's `bench.py` driver on the card (phase 17 of the module
+    docstring) -> {"bench_driver": {kernel: launches}, "entry": {kernel:
+    launches}}, each counted from 0 just before its run and read just
+    after it; the checks against the plain routes launch after."""
+    from findkmer_torch.bench import driver
+    from findkmer_torch.graft_entry import dryrun_multichip, entry
+    from findkmer_torch.parallel.dryrun import LEGS as DRYRUN_LEGS
+    from findkmer_torch.utils.prof import PhaseTimers
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.empty_cache()
+    metrics = _driver_subprocess(smi)
+    fin_timers = PhaseTimers()
+    out, err = io.StringIO(), io.StringIO()
+    with _BenchTap(fin_timers) as bench, _RowSortTap() as tap:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = driver.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {key: w.launches for key, w in WRAPPERS.items()}
+        sorts = tap.calls
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"bench driver in process: rc {rc}: "
+                             f"{err.getvalue()[-2000:]}")
+    kinds = [kind for kind, *_ in bench.runs]
+    if kinds != ["_dense_run"] + ["_sparse_run"] * 4:
+        raise AssertionError(f"bench driver: staged runs {kinds}")
+    # K2 once a dense step (and its warm-up), C1 once an ingest of each of
+    # a sparse call's two runs, K3 once a compaction (one a run), K1 and
+    # K3's long rows never
+    want = {"histogram_cuda": 0, "sort_rows_cuda_long": 0,
+            "fused_window_histogram_cuda": bench.runs[0][1]["steps"] + 1,
+            C1: sum(2 * kw["steps"] for _, kw, *_ in bench.runs[1:]),
+            "sort_rows_cuda": 2 * 4}
+    if launched != want or sorts != want["sort_rows_cuda"]:
+        raise AssertionError(f"bench driver: launches {launched} for {sorts}"
+                             f" row sorts, {want} expected")
+    checks = {}
+    while bench.runs:
+        run = bench.runs.pop(0)
+        kw = run[1]
+        name = (f"k{kw['k']}{'_canonical' if kw['canonical'] else ''}"
+                f"_{kw['batch_rows']}rows")
+        if run[0] == "_dense_run":
+            checks[name] = _bench_check(bench.steps, [run], dev)
+        else:
+            checks[name] = _driver_store_check(bench.steps, run, dev)
+        del run  # the state, freed before the next check
+        torch.cuda.empty_cache()
+    say("bench_driver", launches=launched, row_sorts=sorts, checks=checks,
+        in_process_wall_s=wall, peak_device_bytes=peak,
+        process_wall_s=metrics["process_wall_s"],
+        in_process_lines=[json.loads(ln) for ln in
+                          (err.getvalue() + out.getvalue()).splitlines()
+                          if ln.startswith("{")],
+        finalize_phases=fin_timers.as_dict(), card=smi)
+
+    # entry(): one k=8 dense step at 64 x 1024 through jitted_forward
+    fn, (table, rows) = entry()
+    seeded = torch.from_numpy(bench.steps.dense_rows(*rows.shape)).to(dev)
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    got = fn(table, seeded)
+    torch.cuda.synchronize()
+    entry_launched = {key: w.launches for key, w in WRAPPERS.items()}
+    if entry_launched != {**dict.fromkeys(WRAPPERS, 0),
+                          "fused_window_histogram_cuda": 1}:
+        raise AssertionError(f"entry(): launches {entry_launched}")
+    want_table = counter_mod._dense_step(
+        torch.zeros_like(table), seeded, 8, False, table.numel(), "scatter",
+        rows.shape[1])
+    zero = fn(torch.zeros_like(table), rows)  # the example's all-N rows
+    if not torch.equal(got, want_table) or int(zero.abs().sum()) != 0:
+        raise AssertionError("entry(): the table differs from the plain "
+                             "step's")
+    say("bench_driver_entry", launches=entry_launched,
+        rows=list(rows.shape), windows=int(got.sum()), max_abs_err=0)
+    del fn, table, rows, seeded, got, want_table, zero
+
+    # dryrun_multichip(2): every merge leg over two shards on the card,
+    # each spectrum held exactly to its numpy reference inside
+    t0 = time.perf_counter()
+    records = dryrun_multichip(2)
+    bad = {leg: r for leg, r in records.items()
+           if not (r["equal"] and r["shards"] == 2)}
+    if list(records) != list(DRYRUN_LEGS) or bad:
+        raise AssertionError(f"dryrun_multichip(2): legs {list(records)}, "
+                             f"not equal {bad}")
+    say("bench_driver_dryrun", shards=2,
+        legs={leg: {"k": r["k"], "merge": r.get("merge"),
+                    "equal": r["equal"], "sha256": r["sha256"]}
+              for leg, r in records.items()},
+        seconds=time.perf_counter() - t0,
+        phase_seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return {"bench_driver": launched, "entry": entry_launched}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3371,7 +3609,8 @@ def main() -> int:
                          "restartable stream's, only read filtering's, "
                          "only the spectrum tools', only the mesh's, only "
                          "the `count --spill` A/B (--against), only the "
-                         "installed package's, or only `bench`'s, and "
+                         "installed package's, or only `bench`'s and the "
+                         "bench.py driver's, and "
                          "stop: no summary, no ok-line; the quick check of "
                          "an edit")
     ap.add_argument("--against", metavar="DIR",
@@ -3406,6 +3645,7 @@ def main() -> int:
         return 0
     if args.only == "bench":
         phase_bench()
+        phase_bench_driver(smi)
         return 0
     if args.only == "spill":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3462,6 +3702,7 @@ def main() -> int:
         tools_launches = phase_tools(tmp, args.seed)
         mesh_launches = phase_mesh(tmp, args.seed)
     bench_launches = phase_bench()
+    driver_launches = phase_bench_driver(smi)
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
@@ -3476,15 +3717,17 @@ def main() -> int:
     def launches_of(name: str, count: int) -> dict:
         """The `count` paths' launches, each stream-phase run's own, the
         --per-record runs' on the card, the filter runs' (C1 alone), the
-        spectrum tools', the mesh's, the installed package's and
-        `bench`'s."""
+        spectrum tools', the mesh's, the installed package's, `bench`'s,
+        the `bench.py` driver's and `entry()`'s."""
         by_run = {**stream_launches[name],
                   "per_record": per_record_launches[name],
                   "filter": filter_launches[name],
                   "tools": tools_launches[name],
                   "mesh": mesh_launches[name],
                   "installed": installed_launches[name],
-                  "bench": bench_launches[name]}
+                  "bench": bench_launches[name],
+                  "bench_driver": driver_launches["bench_driver"][name],
+                  "entry": driver_launches["entry"][name]}
         return {"launches": count + sum(by_run.values()),
                 "launches_by_path": {"count": count, **by_run}}
 

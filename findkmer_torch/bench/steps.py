@@ -11,7 +11,10 @@ sort kernel).  Inputs are the reference's draw for draw
 `_dense_run` and `_sparse_run` do the work and return the counter and its
 final state beside the seconds: the tests and `chip_smoke.py` hold that
 state to other routes; the public functions return the reference's
-`(bases_per_s, seconds)`.
+`(bases_per_s, seconds)` (and the finalize's seconds with
+`time_finalize`).  `bench_end_to_end` counts a FASTA file through the
+pipeline.  `driver.py` makes the reference `bench.py`'s five
+measurements from these steps.
 """
 
 from __future__ import annotations
@@ -93,41 +96,79 @@ def bench_dense_step(device, k=8, batch_rows=256, chunk_len=65536, steps=8,
 
 
 def _sparse_run(device, k=21, batch_rows=1024, chunk_len=65536, steps=3,
-                capacity=1 << 28, canonical=False, row_sort="auto"):
+                capacity=1 << 28, canonical=False, time_finalize=False,
+                table_mode="auto", row_sort="auto", timers=None):
     """Two runs of `steps` ingests of the staged wire plus one compaction,
     each from a fresh state: the first warms up (and builds the kernels),
-    the second is timed.  row_sort picks the store's row sort ("plain":
-    the route the card's kernel is held to).  -> (counter, the timed
-    run's compacted state, its seconds)."""
+    the second is timed.  time_finalize: each run also finalizes its
+    compacted store (the warm run too, so no first-call cost lands in the
+    timed merge), and the timed run's `counter.finalize` is timed on its
+    own by the host clock, into `timers` when given (its sub-phases).
+    row_sort picks the store's row sort ("plain": the route the card's
+    kernel is held to).  -> (counter, the timed run's compacted state, its
+    seconds), and the finalize's seconds last when time_finalize."""
     from findkmer_torch.models.counter import KmerCounter
 
     cfg = Config(k=k, batch_rows=batch_rows, chunk_len=chunk_len,
                  sparse_capacity=capacity, canonical=canonical,
-                 sparse_expected_entries=batch_rows * chunk_len * steps)
+                 sparse_expected_entries=batch_rows * chunk_len * steps,
+                 table_mode=table_mode)
     counter = KmerCounter(cfg, device, row_sort=row_sort)
     wire = counter.put_batch(sparse_wire(cfg))
 
-    def run_once():
+    def run_once(timed_timers=None):
         t0 = time.perf_counter()
         state = counter.init_state()
         for _ in range(steps):
             state = counter.step(state, wire)
         state = counter.compact(state)
         _sync(state.store[-1])
-        return state, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        fin_dt = 0.0
+        if time_finalize:
+            t1 = time.perf_counter()
+            counter.finalize(state, timers=timed_timers)
+            fin_dt = time.perf_counter() - t1
+        return state, dt, fin_dt
 
     run_once()
-    state, dt = run_once()
+    state, dt, fin_dt = run_once(timers)
+    if time_finalize:
+        return counter, state, dt, fin_dt
     return counter, state, dt
 
 
 def bench_sparse_step(device, k=21, batch_rows=1024, chunk_len=65536,
-                      steps=3, capacity=1 << 28, canonical=False):
+                      steps=3, capacity=1 << 28, canonical=False,
+                      time_finalize=False, table_mode="auto"):
     """bases/s of the sparse path for big k: the timed window is every
     device step that makes the exact store of `steps` batches (raw-code
     ingest and the final compaction), without the finalize, the copy to
-    the host and the output.  -> (bases_per_s, seconds)."""
-    _, _, dt = _sparse_run(device, k=k, batch_rows=batch_rows,
-                           chunk_len=chunk_len, steps=steps,
-                           capacity=capacity, canonical=canonical)
-    return batch_rows * chunk_len * steps / dt, dt
+    the host and the output.  -> (bases_per_s, seconds).
+
+    time_finalize: also time `counter.finalize` of the timed run's
+    compacted store (the count-table merge: the flat device sort, the
+    pinned copies to the host and the host assembly of the spectrum) and
+    return (bases_per_s, seconds, finalize_seconds)."""
+    out = _sparse_run(device, k=k, batch_rows=batch_rows,
+                      chunk_len=chunk_len, steps=steps, capacity=capacity,
+                      canonical=canonical, time_finalize=time_finalize,
+                      table_mode=table_mode)
+    bps = batch_rows * chunk_len * steps / out[2]
+    if time_finalize:
+        return bps, out[2], out[3]
+    return bps, out[2]
+
+
+def bench_end_to_end(device, path, k=8, hist="auto"):
+    """bases/s of counting a real FASTA file host to device end to end
+    (`pipeline.count_file` at 64 x 65536 batches).  -> (bases_per_s,
+    seconds)."""
+    from findkmer_torch import pipeline
+
+    cfg = Config(k=k, hist=hist, batch_rows=64, chunk_len=65536)
+    stats = pipeline.StreamStats()
+    t0 = time.perf_counter()
+    pipeline.count_file(path, cfg, device, stats=stats)
+    dt = time.perf_counter() - t0
+    return stats.bases / dt, dt

@@ -17,6 +17,8 @@ order, which makes spectrum emission a linear scan.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 INVALID = np.uint8(4)  # sentinel code for non-ACGT bytes (window reset)
@@ -50,6 +52,11 @@ def _get_native():
     return _native
 
 
+def encoder_backend(prefer_native: bool = True) -> str:
+    """Name of the encode backend that encode_bytes will use."""
+    return "native" if (prefer_native and _get_native()) else "numpy"
+
+
 def encode_bytes(
     data: bytes | np.ndarray, *, prefer_native: bool = True
 ) -> np.ndarray:
@@ -67,3 +74,56 @@ def encode_bytes(
     if nat is not None:
         return nat.encode(buf)
     return _numpy_encode(buf)
+
+
+def decode_codes(codes: np.ndarray) -> bytes:
+    """Codes (0..3) back to ACGT bytes.  INVALID becomes 'N'."""
+    out_lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    return out_lut[np.minimum(codes, 4)].tobytes()
+
+
+# ----------------------------------------------------------------------
+# 2-bit packing: 4 bases/byte for minimal H2D traffic, plus a separate
+# validity bitmask (1 bit/base).  The device unpacks with shifts
+# (ops/window.py unpack path).
+# ----------------------------------------------------------------------
+
+def pack_2bit(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Pack uint8 codes into (packed, validmask, n).
+
+    MSB-first (one big-endian 2-bit stream, matching encode.c and the
+    device unpack): base 4i+j of byte i sits at bits (6-2j)..(7-2j),
+    so base 0 occupies the TOP two bits; INVALID packs as 0.
+    validmask: uint8, ceil(n/8) bytes, base 8i+j at bit (7-j) of byte i
+    (np.packbits bitorder='big').  n: original base count."""
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    n = codes.shape[0]
+    valid = codes < 4
+    safe = np.where(valid, codes, 0).astype(np.uint8)
+
+    pad4 = (-n) % 4
+    if pad4:
+        safe = np.concatenate([safe, np.zeros(pad4, np.uint8)])
+    q = safe.reshape(-1, 4)
+    # MSB-first: the wire is one big-endian 2-bit stream (encode.c)
+    packed = (
+        (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
+    ).astype(np.uint8)
+
+    validmask = np.packbits(valid, bitorder="big")
+    return packed, validmask, n
+
+
+def unpack_2bit(
+    packed: np.ndarray, validmask: np.ndarray, n: int
+) -> np.ndarray:
+    """Inverse of pack_2bit: back to uint8 codes with INVALID sentinels."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    b = packed.reshape(-1, 1)
+    shifts = np.array([6, 4, 2, 0], dtype=np.uint8)
+    codes = ((b >> shifts) & 3).reshape(-1)[:n].astype(np.uint8)
+    valid = np.unpackbits(
+        np.asarray(validmask, dtype=np.uint8), bitorder="big"
+    )[:n].astype(bool)
+    codes[~valid] = INVALID
+    return codes

@@ -266,3 +266,9 @@ class FastaReader:
             if ch.final:
                 yield header, b"".join(parts)
                 parts = []
+
+
+def read_records(path) -> List[Tuple[str, bytes]]:
+    """Convenience: fully parse a FASTA file into (header, seq) pairs."""
+    with FastaReader(path) as r:
+        return list(r.records())

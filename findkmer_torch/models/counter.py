@@ -526,6 +526,47 @@ class KmerCounter(RowStoreMixin):
         return SparseState(raw=self._fresh(self._raw_cap0()), store=store,
                            store_len=Lc, distinct=drows)
 
+    # ------------------------------------------------------------------
+    def jitted_forward(self):
+        """(fn, example_args) of one device step on this counter's device,
+        for a compile-and-run check (`graft_entry.entry`); the name is the
+        reference's.  The example rows are the reference's: (batch_rows,
+        row_len) uint8, all 4 (N).
+
+        Direct table: `fn(table, rows)` adds the rows' windows into the
+        table by the route `step` takes here (on a card K2's uint8-row
+        entry) and returns it.  Sparse: `fn(rows)` is `step` then
+        `compact` on a fresh state whose raw buffer holds the rows'
+        codes padded to the reference's ladder target (a multiple of the
+        store's rows), not `init_state`'s two batches, so the store has
+        the reference's shape; one raw compaction (K3 on a card, the
+        plain sort on the CPU) -> ((codes, counts) (G, cols) store,
+        per-row distinct).  PyTorch runs eagerly: fn is a plain
+        callable, compiled by nothing."""
+        cfg = self.cfg
+        rows = torch.full((cfg.batch_rows, cfg.row_len), 4,
+                          dtype=torch.uint8, device=self.device)
+        if self.mode == "direct":
+
+            def fn(table, rows):
+                state = self.step(table_mod.DenseTable(counts=table,
+                                                       k=cfg.k), rows)
+                return state.counts
+
+            return fn, (table_mod.make_table(cfg, self.device).counts, rows)
+
+        G = self._rows
+
+        def fn(rows):
+            L = sparse_ops.ladder(batch_slots(rows, cfg.k, cfg.row_len),
+                                  floor=4096)
+            L = -(-L // G) * G  # row-divisible pad target
+            state = self.compact(self.step(SparseState(raw=self._fresh(L)),
+                                           rows))
+            return state.store, state.distinct
+
+        return fn, (rows,)
+
 
 def _pull_owned(codes: torch.Tensor, counts: torch.Tensor):
     """A device spectrum on the host as arrays of its own (codes uint64,

@@ -119,6 +119,25 @@ def compact_counted_2d(codes: torch.Tensor, cnt: torch.Tensor,
     return codes, cnt, torch.count_nonzero(cnt, dim=1)
 
 
+def compact_raw(codes: torch.Tensor, count_dtype: torch.dtype = torch.int32):
+    """One flat plane of raw sentinel-masked codes -> (sorted codes,
+    run-total counts, distinct): the reference's 1-D `compact_raw` on the
+    port's one code plane (a row of `compact_raw_2d`).  Duplicates keep
+    their code with count 0; distinct is a 0-d tensor.  The sort may run
+    in place on `codes`."""
+    codes, cnt, d = compact_raw_2d(codes.reshape(1, -1), count_dtype)
+    return codes.reshape(-1), cnt.reshape(-1), d[0]
+
+
+def compact_counted(codes: torch.Tensor, cnt: torch.Tensor):
+    """The count-carrying compaction of one flat plane of (code, count)
+    pairs -> (sorted codes, run totals at each run's end, distinct): the
+    reference's 1-D `compact_counted` (a row of `compact_counted_2d`)."""
+    codes, cnt, d = compact_counted_2d(codes.reshape(1, -1),
+                                       cnt.reshape(1, -1))
+    return codes.reshape(-1), cnt.reshape(-1), d[0]
+
+
 def squeeze_2d(codes: torch.Tensor, cnt: torch.Tensor, plain: bool = False):
     """Push each row's zero-count holes to its end (holes re-keyed to the
     sentinel), live entries sorted at the front.  May sort `cnt` in

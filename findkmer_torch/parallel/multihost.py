@@ -100,6 +100,12 @@ def shard_batches_round_robin(
             yield b
 
 
+def process_batch_count(total_batches: int, num_processes: int,
+                        process_id: int) -> int:
+    """How many batches the given host processes out of `total_batches`."""
+    return (total_batches - process_id + num_processes - 1) // num_processes
+
+
 def group_active() -> bool:
     """True when a process group of more than one process is up."""
     import torch.distributed as dist

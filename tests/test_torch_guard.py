@@ -156,6 +156,52 @@ def test_bench_never_imports_jax(tmp_path):
                                           "host_batches", "write"]
 
 
+def test_bench_driver_and_entry_never_import_jax(tmp_path):
+    """The benchmark driver (its five calls cut to a small geometry),
+    `entry()` and `dryrun_multichip` on the CPU, in a fresh interpreter:
+    the driver's one stdout line, the step's table, every mesh leg."""
+    out = _without_jax(
+        "from findkmer_torch.bench import driver, steps\n"
+        "from findkmer_torch.graft_entry import dryrun_multichip, entry\n"
+        "def small(fn):\n"
+        "    return lambda dev, **kw: fn(dev, **{**kw, 'chunk_len': 1024,"
+        " 'steps': 1, 'batch_rows': kw.get('batch_rows', 1024) // 128})\n"
+        "driver.bench_dense_step = small(steps.bench_dense_step)\n"
+        "driver.bench_sparse_step = small(steps.bench_sparse_step)\n"
+        "assert driver.main(['--device', 'cpu']) == 0\n"
+        "fn, args = entry(device='cpu')\n"
+        "assert int(fn(*args).sum()) == 0\n"
+        "legs = dryrun_multichip(2, device='cpu')\n"
+        "assert all(r['equal'] for r in legs.values()), legs\n",
+        tmp_path,
+    )
+    (line,) = [json.loads(ln) for ln in out.splitlines()]
+    assert line["metric"] == "bases_per_s_per_chip_k8" and line["value"] > 0
+
+
+def test_bench_driver_and_entry_without_cuda_refuse(tmp_path, capsys):
+    """Without a card and without device="cpu": the driver exits 2 with
+    nothing on stdout (in this process and as `python -m`), `entry()` and
+    `dryrun_multichip` raise; nothing runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from findkmer_torch.bench import driver
+    from findkmer_torch.graft_entry import dryrun_multichip, entry
+
+    assert driver.main([]) == 2
+    out, err = capsys.readouterr()
+    assert out == "" and "torch.cuda.is_available() is False" in err
+    res = subprocess.run([sys.executable, "-m", "findkmer_torch.bench.driver"],
+                         capture_output=True, text=True, cwd=str(tmp_path),
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         timeout=300)
+    assert res.returncode == 2 and res.stdout == ""
+    assert "torch.cuda.is_available() is False" in res.stderr
+    for call in (entry, lambda: dryrun_multichip(2)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+
+
 def test_api_never_imports_jax(fixtures_dir, tmp_path):
     path = os.path.join(fixtures_dir, "tiny.fa")
     want = count_fasta_file(path, 4)
@@ -313,7 +359,8 @@ def test_port_sources_do_not_import_jax():
     for new in ("streaming.py", "spill.py", "utils/checkpoint.py",
                 "utils/logging.py", "parallel/multihost.py", "filter.py",
                 "filter_device.py", "spectra.py", "sketch.py",
-                "bench/steps.py", "bench/quick.py"):
+                "bench/steps.py", "bench/quick.py", "bench/driver.py",
+                "graft_entry.py"):
         assert PORT / new in sources
     offenders = [str(p.relative_to(REPO)) for p in sources
                  if pat.search(p.read_text())]

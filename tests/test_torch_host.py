@@ -976,3 +976,137 @@ def test_utils_behave_as_the_originals(tmp_path):
         assert w.write(data[:100]) == 100
         w.write(memoryview(data[100:]))
     assert path.read_bytes() == data.tobytes()
+
+
+# ---- the subpackages' exports, and the names they added ---------------------
+
+# names of the reference's subpackage exports that only its TPU layout
+# has: the (hi, lo) pair's extraction and u32 sentinel, a jax.sharding
+# axis name
+TPU_ONLY = {"window_codes_wide", "SENTINEL", "device_axis"}
+# exports only the port has
+PORT_ONLY = {"io": {"FastqReader"}}
+
+
+@pytest.mark.parametrize("sub", ["io", "ops", "parallel", "utils", "models"])
+def test_subpackage_exports_equal(sub):
+    """Each subpackage's `__all__` is the reference's less TPU_ONLY (plus
+    PORT_ONLY), every name resolves, and each export is the port's own
+    module function or class of that name."""
+    import importlib
+
+    theirs = importlib.import_module(f"findkmer_tpu.{sub}")
+    ours = importlib.import_module(f"findkmer_torch.{sub}")
+    assert len(ours.__all__) == len(set(ours.__all__))
+    assert set(ours.__all__) - PORT_ONLY.get(sub, set()) == \
+        set(theirs.__all__) - TPU_ONLY
+    for name in ours.__all__:
+        obj = getattr(ours, name)
+        if name == "INVALID":  # a numpy scalar, the reference's value
+            assert obj == theirs.INVALID
+        else:
+            assert obj.__module__.startswith(f"findkmer_torch.{sub}"), name
+
+
+def test_read_records_equal(fixtures_dir):
+    for name in FASTAS:
+        path = os.path.join(fixtures_dir, name)
+        got = port_io.read_records(path)
+        assert got == jax_fasta.read_records(path) and got
+
+
+@pytest.mark.parametrize("prefer_native", [False, True],
+                         ids=["numpy", "native"])
+def test_encoder_backend_equal(prefer_native):
+    assert encode.encoder_backend(prefer_native) == \
+        jax_encode.encoder_backend(prefer_native)
+    assert encode.encoder_backend(False) == "numpy"
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 7, 8, 9, 1000, 65537])
+def test_pack_unpack_decode_equal(n):
+    codes = encode.encode_bytes(_dna_bytes(n, n), prefer_native=False)
+    got, want = encode.pack_2bit(codes), jax_encode.pack_2bit(codes)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert got[2] == want[2] == n
+    back = encode.unpack_2bit(*got)
+    np.testing.assert_array_equal(back, jax_encode.unpack_2bit(*want))
+    np.testing.assert_array_equal(back, codes)
+    assert encode.decode_codes(codes) == jax_encode.decode_codes(codes)
+
+
+def test_process_batch_count_equal():
+    for total in range(0, 13):
+        for p in range(1, 5):
+            counts = [multihost.process_batch_count(total, p, h)
+                      for h in range(p)]
+            assert counts == [jax_multihost.process_batch_count(total, p, h)
+                              for h in range(p)]
+            assert sum(counts) == total
+            assert counts == [len(list(multihost.shard_batches_round_robin(
+                iter(range(total)), p, h))) for h in range(p)]
+
+
+def _codes_with_sentinels(k, n, seed):
+    """n seeded codes of k bases (many repeats), ~10% the sentinel:
+    (the port's plane, the reference's (hi, lo) planes)."""
+    import torch
+
+    from findkmer_torch.ops.window import code_dtype, sentinel
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, min(4 ** k, 64), n).astype(np.uint64) \
+        * np.uint64(max(4 ** k // 64, 1))
+    sent = rng.random(n) < 0.1
+    hi = (codes >> np.uint64(32)).astype(np.uint32)
+    lo = (codes & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi[sent] = lo[sent] = 0xFFFFFFFF
+    dt = code_dtype(k)
+    ours = torch.from_numpy(codes.astype(np.int64)).to(dt)
+    ours[torch.from_numpy(sent)] = sentinel(dt)
+    return ours, hi, lo
+
+
+def _joined(hi, lo, dtype):
+    from findkmer_torch.ops.window import sentinel
+
+    hi, lo = np.asarray(hi), np.asarray(lo)
+    codes = (hi.astype(np.int64) << 32) | lo.astype(np.int64)
+    codes[(hi == 0xFFFFFFFF) & (lo == 0xFFFFFFFF)] = sentinel(dtype)
+    return codes
+
+
+@pytest.mark.parametrize("k", [11, 21, 31])
+@pytest.mark.parametrize("n", [1, 100, 5000])
+def test_compact_raw_and_counted_equal(k, n):
+    """ops.compact_raw / compact_counted on one code plane against the
+    reference's 1-D functions on its (hi, lo) planes."""
+    import jax.numpy as jnp
+    import torch
+
+    import findkmer_torch.ops as port_ops
+    import findkmer_tpu.ops as jax_ops
+
+    ours, hi, lo = _codes_with_sentinels(k, n, seed=k * n)
+    codes, cnt, d = port_ops.compact_raw(ours.clone())
+    jhi, jlo, jcnt, jd = jax_ops.compact_raw(jnp.asarray(hi),
+                                             jnp.asarray(lo))
+    np.testing.assert_array_equal(codes.numpy(),
+                                  _joined(jhi, jlo, ours.dtype))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    assert cnt.dtype == torch.int32 and int(d) == int(jd)
+    # count-carrying: the store re-entering with itself as raw codes
+    codes2 = torch.cat([codes, ours])
+    cnt2 = torch.cat([cnt, torch.ones_like(cnt)])
+    got = port_ops.compact_counted(codes2, cnt2)
+    want = jax_ops.compact_counted(
+        jnp.concatenate([jhi, jnp.asarray(hi)]),
+        jnp.concatenate([jlo, jnp.asarray(lo)]),
+        jnp.concatenate([jcnt, jnp.ones_like(jcnt)]))
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  _joined(want[0], want[1], ours.dtype))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[2]))
+    assert int(got[2]) == int(want[3]) == int(d)
+    assert int(got[1].sum()) == 2 * int(cnt.sum())
