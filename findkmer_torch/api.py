@@ -24,7 +24,8 @@ torch device named explicitly (`device="cuda"` or `"cpu"`, or a
     fkt.expr("(A + B) - C", {"A": "a.tsv", "B": "b.tsv", "C": "c.tsv"})
 
 `Spectrum` is the port's own copy of the JAX package's class, with the
-same methods; its lookups use the port's window helpers.
+same methods; its lookups use the port's window helpers.  Its spans
+(`utils.prof`): `from_engine` is `finalize/assemble`, `histo` is `write`.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from findkmer_torch.config import Config
+from findkmer_torch.utils.prof import span
 
 
 @dataclass
@@ -51,16 +53,18 @@ class Spectrum:
     # ------------------------------------------------------------------
     @classmethod
     def from_engine(cls, spectrum, cfg: Config) -> "Spectrum":
-        if isinstance(spectrum, tuple):
-            codes, counts = spectrum
+        with span("finalize/assemble"):
+            if isinstance(spectrum, tuple):
+                codes, counts = spectrum
+                return cls(
+                    k=cfg.k, canonical=cfg.canonical,
+                    _codes=np.asarray(codes, dtype=np.uint64),
+                    _counts=np.asarray(counts),
+                )
             return cls(
                 k=cfg.k, canonical=cfg.canonical,
-                _codes=np.asarray(codes, dtype=np.uint64),
-                _counts=np.asarray(counts),
+                _dense=np.asarray(spectrum)
             )
-        return cls(
-            k=cfg.k, canonical=cfg.canonical, _dense=np.asarray(spectrum)
-        )
 
     # ------------------------------------------------------------------
     def __getitem__(self, kmer: Union[str, int]) -> int:
@@ -100,13 +104,14 @@ class Spectrum:
     def histo(self, max_count: int = 10000) -> np.ndarray:
         """Count-of-counts: h[m] = number of distinct k-mers seen m times
         (m clipped to max_count; h[0] unused)."""
-        counts = (
-            self._dense[self._dense > 0]
-            if self._dense is not None
-            else self._counts
-        )
-        clipped = np.minimum(counts.astype(np.int64), max_count)
-        return np.bincount(clipped, minlength=max_count + 1)
+        with span("write"):
+            counts = (
+                self._dense[self._dense > 0]
+                if self._dense is not None
+                else self._counts
+            )
+            clipped = np.minimum(counts.astype(np.int64), max_count)
+            return np.bincount(clipped, minlength=max_count + 1)
 
     def write(self, path_or_file, *, zeros: bool = False, sep: str = "\t"):
         """Write the spectrum in CLI format (lexicographic KMER<sep>COUNT)."""

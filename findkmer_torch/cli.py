@@ -48,12 +48,16 @@ the first N cards with `--device cuda`, N shards of the CPU with
 `--device cpu`; 0 means every card.  `stream --coordinator ADDR` with
 several processes ends in one collective merge over a gloo process group
 (`parallel/multihost.py`).  `--profile DIR` (`count`, `stream`, `histo`)
-writes a torch.profiler Chrome trace of the count into DIR.
+writes a torch.profiler Chrome trace of the count and its output into
+DIR, the program's spans (`utils/prof.py`) among its ranges as
+`findkmer.<span>`; `count --stats json` adds every span's total to its
+line as `phases`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -254,6 +258,22 @@ def _use_streamed_finalize(counter) -> bool:
     return counter.mode != "direct"
 
 
+@contextlib.contextmanager
+def _written(path):
+    """The file `_open_out(path)` opens, closed at the end if it is one
+    of its own; the open and the close are `write` spans."""
+    from findkmer_torch.utils.prof import span
+
+    with span("write"):
+        f, close = _open_out(path)
+    try:
+        yield f
+    finally:
+        if close:
+            with span("write"):
+                f.close()
+
+
 def emit_streamed_spectrum(counter, state, cfg, output, timers=None):
     """Open `output` and write counter.finalize_chunks(state) to it: the
     shared streamed-finalize tail of `count` and `stream`.  Each chunk is
@@ -261,15 +281,10 @@ def emit_streamed_spectrum(counter, state, cfg, output, timers=None):
     flight."""
     from findkmer_torch import output as output_mod
 
-    f, close = _open_out(output)
-    try:
+    with _written(output) as f:
         chunks = counter.finalize_chunks(state, timers=timers)
-        if timers is not None:
-            chunks = _timed_chunks(chunks, timers)
-        output_mod.write_spectrum_streaming(f, chunks, cfg)
-    finally:
-        if close:
-            f.close()
+        output_mod.write_spectrum_streaming(
+            f, _timed_chunks(chunks, timers), cfg)
 
 
 def _warn_numpy_encoder(cfg) -> str:
@@ -297,16 +312,20 @@ def _set_log_level(level) -> None:
         os.environ["FINDKMER_LOGLEVEL"] = level
 
 
-def _timed_chunks(chunks, timers):
-    """Pass finalize chunks through, timing the wait for each chunk as
-    "finalize" and the caller's work on it (format, write) as "write"."""
+def _timed_chunks(chunks, timers=None):
+    """Pass finalize chunks through, the wait for each chunk a "finalize"
+    span and the caller's work on it (format, write) a "write" span;
+    `timers` is `stream`'s PhaseTimers, which takes these two spans and
+    not their parts."""
+    from findkmer_torch.utils.prof import span
+
     it = iter(chunks)
     while True:
-        with timers.phase("finalize"):
+        with span("finalize", timers):
             chunk = next(it, None)
         if chunk is None:
             return
-        with timers.phase("write"):
+        with span("write", timers):
             yield chunk
 
 
@@ -318,13 +337,15 @@ def _count_inputs_to_files(inputs, out_paths, cfg, device, stats=None,
     dense_kernel pick the counter's kernels, as in `cmd_count`."""
     from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
+    from findkmer_torch.utils.prof import span
 
     for path, out in zip(inputs, out_paths):
-        spectrum = pipeline.count_file(path, cfg, device, stats=stats,
-                                       row_sort=row_sort,
-                                       dense_kernel=dense_kernel)
-        with open(out, "wb") as f:
-            output_mod.write_spectrum(f, spectrum, cfg)
+        with span("sample"):
+            spectrum = pipeline.count_file(path, cfg, device, stats=stats,
+                                           row_sort=row_sort,
+                                           dense_kernel=dense_kernel)
+            with open(out, "wb") as f, span("write"):
+                output_mod.write_spectrum(f, spectrum, cfg)
 
 
 def _count_per_input(args, cfg, device, kernels: dict) -> int:
@@ -383,7 +404,8 @@ def cmd_count(args, row_sort: str = "auto",
     from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
     from findkmer_torch.device import resolve_device
-    from findkmer_torch.utils.prof import PhaseTimers, device_trace
+    from findkmer_torch.utils.prof import (PhaseTimers, collecting,
+                                           device_trace, span)
 
     _set_log_level(args.log)
     cfg = _cfg_from_args(args)
@@ -395,37 +417,28 @@ def cmd_count(args, row_sort: str = "auto",
     device = resolve_device(args.device)
     encoder = _warn_numpy_encoder(cfg)
     kernels = dict(row_sort=row_sort, dense_kernel=dense_kernel)
-    if args.per_input:
-        return _count_per_input(args, cfg, device, kernels)
-    if args.per_record:
-        return _count_per_record(args, cfg, device, kernels)
+    if args.per_input or args.per_record:
+        each = _count_per_input if args.per_input else _count_per_record
+        with device_trace(args.profile):
+            return each(args, cfg, device, kernels)
     stats = pipeline.StreamStats()
+    # --stats json: the phases are every span of the count
     timers = PhaseTimers() if args.stats == "json" else None
 
     t0 = time.time()
-    with device_trace(args.profile):
+    with collecting(timers), device_trace(args.profile):
         # multiple inputs: one combined spectrum (records concatenated)
         counter, state = pipeline.run_count(args.input, cfg, device,
-                                            stats=stats, timers=timers,
-                                            **kernels)
+                                            stats=stats, **kernels)
         if _use_streamed_finalize(counter):
-            emit_streamed_spectrum(counter, state, cfg, args.output,
-                                   timers=timers)
+            emit_streamed_spectrum(counter, state, cfg, args.output)
         else:
             # dense, or the heap-merge finalize of a sparse table
-            f, close = _open_out(args.output)
-            try:
-                if timers is None:
-                    output_mod.write_spectrum(f, counter.finalize(state),
-                                              cfg)
-                else:
-                    with timers.phase("finalize"):
-                        spectrum = counter.finalize(state, timers=timers)
-                    with timers.phase("write"):
-                        output_mod.write_spectrum(f, spectrum, cfg)
-            finally:
-                if close:
-                    f.close()
+            with _written(args.output) as f:
+                with span("finalize"):
+                    spectrum = counter.finalize(state)
+                with span("write"):
+                    output_mod.write_spectrum(f, spectrum, cfg)
     wall = time.time() - t0
     if args.stats == "json":
         d = stats.as_dict()
@@ -951,10 +964,31 @@ def cmd_diff(args, **_kernels) -> int:
     return 1 if (shown or extra) else 0
 
 
+HISTO_BLOCK = 1 << 16  # histogram lines formatted a write
+
+
 def cmd_histo(args, **_kernels) -> int:
     """Count-of-counts histogram (KMC `histogram`-style output): of a
     recount on --device, or of spectrum files (--from-spectrum, host
-    only)."""
+    only).  --profile traces the recount and the histogram's output."""
+    from findkmer_torch.utils.prof import device_trace, span
+
+    with device_trace(None if args.from_spectrum else args.profile):
+        h, sep = _histogram(args)
+        with _written(args.output) as f, span("write"):
+            for a in range(1, h.size, HISTO_BLOCK):
+                with span("write/format"):
+                    lines = "".join(
+                        f"{m}{sep}{int(h[m])}\n"
+                        for m in range(a, min(a + HISTO_BLOCK, h.size))
+                        if h[m] or not args.nonzero_only).encode()
+                with span("write/io"):
+                    f.write(lines)
+    return 0
+
+
+def _histogram(args):
+    """`histo`'s (count-of-counts array, separator)."""
     if args.from_spectrum:
         # histogram an existing spectrum file — no recount, no device
         from findkmer_torch import spectra
@@ -965,26 +999,13 @@ def cmd_histo(args, **_kernels) -> int:
                 path, max_count=args.max_count, sep=args.sep
             )
             h = hi if h is None else h + hi
-        sep = args.sep
-    else:
-        from findkmer_torch import api
-        from findkmer_torch.utils.prof import device_trace
+        return h, args.sep
+    from findkmer_torch import api
 
-        cfg = _cfg_from_args(args)
-        with device_trace(args.profile):
-            spec = api.count(args.input, cfg.k, canonical=cfg.canonical,
-                             config=cfg, device=args.device)
-        h = spec.histo(max_count=args.max_count)
-        sep = cfg.sep
-    f, close = _open_out(args.output)
-    try:
-        for m in range(1, h.size):
-            if h[m] or not args.nonzero_only:
-                f.write(f"{m}{sep}{int(h[m])}\n".encode())
-    finally:
-        if close:
-            f.close()
-    return 0
+    cfg = _cfg_from_args(args)
+    spec = api.count(args.input, cfg.k, canonical=cfg.canonical,
+                     config=cfg, device=args.device)
+    return spec.histo(max_count=args.max_count), cfg.sep
 
 
 def _add_thresholds(p: argparse.ArgumentParser) -> None:

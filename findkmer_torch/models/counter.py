@@ -48,6 +48,12 @@ package's log-structured store.
     sorted run file and restarts it from the raw buffer alone; finalize
     is then a streaming k-way merge of the runs and the residual store,
     and deletes the runs it consumed.
+  * tracing (`utils.prof`): each compaction adds the raw capacity it
+    sorts to the counter `raw_slots_sorted` and the raw fill to
+    `raw_slots_filled`; the front of every finalize adds the store's
+    live entries (the sum of the host distinct vector it reads anyway)
+    to `store_live` and its G x cols slots to `store_slots`.  The finalize's spans are `finalize/<part>`, the
+    chunks' host copies and their concatenation `finalize/assemble`.
 Codes are one integer (int32 for k <= 15, int64 above; `ops/window.py`).
 Counting over several devices is `parallel/dist.py`'s, behind the same
 interface (`make_counter`).
@@ -79,6 +85,7 @@ from findkmer_torch.ops.cuda.window_codes_kernel import (
 from findkmer_torch.ops.cuda.window_histogram_kernel import (
     add_window_counts_cuda,
 )
+from findkmer_torch.utils import prof
 from findkmer_torch.utils.prof import phases
 
 # Minimum row count of the store (the JAX package's STORE_ROWS) and the
@@ -337,6 +344,8 @@ class KmerCounter(RowStoreMixin):
         G = self._rows
         cap = state.raw.shape[0]
         cdt = table_mod.count_dtype(cfg)
+        prof.count("raw_slots_sorted", cap)
+        prof.count("raw_slots_filled", state.fill)
         if state.store is None:
             store, drows = compaction.compact_raw_rows(
                 state.raw, G, cap // G, cdt, self._plain_sort)
@@ -436,19 +445,26 @@ class KmerCounter(RowStoreMixin):
         if (not self._spill_n
                 and os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1"):
             return self._finalize_heap_merge(state, d, ph)
-        parts = [(c.copy(), n.copy())
-                 for c, n in self._sorted_chunks(state, ph)]
-        if not parts:
-            return np.empty(0, np.uint64), np.empty(0, np.int64)
-        return (np.concatenate([c for c, _ in parts]),
-                np.concatenate([n for _, n in parts]))
+        parts = []
+        for c, n in self._sorted_chunks(state, ph):
+            with ph("finalize/assemble"):
+                parts.append((c.copy(), n.copy()))
+        with ph("finalize/assemble"):
+            if not parts:
+                return np.empty(0, np.uint64), np.empty(0, np.int64)
+            return (np.concatenate([c for c, _ in parts]),
+                    np.concatenate([n for _, n in parts]))
 
     def _compacted(self, state, ph):
         """(state, per-row distinct counts) with the raw buffer folded in
         and the capacity checked: the front of every finalize."""
         with ph("finalize/compact"):
             state = self.compact(state)
-            return self._ensure_capacity(state)
+            state, d = self._ensure_capacity(state)
+        if prof.enabled():
+            prof.count("store_live", int(np.asarray(d).sum()))
+            prof.count("store_slots", self._rows * state.store_len)
+        return state, d
 
     def _finalize_heap_merge(self, state, d, ph):
         """The heap-merge finalize of a compacted, unspilled state."""

@@ -8,7 +8,8 @@ and the separator are Config fields.
 Decoding is vectorized: codes are expanded to an (n, k) base matrix with k
 shifts, viewed as fixed-width byte strings, and joined in bounded-size
 chunks; where the C library builds, `io.native.format_spectrum` formats a
-chunk in one pass.
+chunk in one pass.  Spans (`utils.prof`): `write/format` is each chunk's
+formatting, `write/io` each write of formatted bytes.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import IO, Iterator
 import numpy as np
 
 from findkmer_torch.config import Config
+from findkmer_torch.utils.prof import span
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -55,21 +57,22 @@ def _format_chunk(
     codes: np.ndarray, counts: np.ndarray, k: int, sep: bytes,
     counts_only: bool,
 ) -> bytes:
-    if not counts_only and len(sep) == 1:
-        # one-pass C formatter (~10x the numpy string assembly)
-        try:
-            from findkmer_torch.io import native
+    with span("write/format"):
+        if not counts_only and len(sep) == 1:
+            # one-pass C formatter (~10x the numpy string assembly)
+            try:
+                from findkmer_torch.io import native
 
-            if native.available():
-                return native.format_spectrum(codes, counts, k, sep)
-        except Exception:
-            pass
-    counts_s = counts.astype("S")
-    if counts_only:
-        return b"\n".join(counts_s.tolist()) + b"\n"
-    kmers = codes_to_kmer_bytes(codes, k)
-    lines = np.char.add(np.char.add(kmers, sep), counts_s)
-    return b"\n".join(lines.tolist()) + b"\n"
+                if native.available():
+                    return native.format_spectrum(codes, counts, k, sep)
+            except Exception:
+                pass
+        counts_s = counts.astype("S")
+        if counts_only:
+            return b"\n".join(counts_s.tolist()) + b"\n"
+        kmers = codes_to_kmer_bytes(codes, k)
+        lines = np.char.add(np.char.add(kmers, sep), counts_s)
+        return b"\n".join(lines.tolist()) + b"\n"
 
 
 def _apply_count_thresholds(spectrum, cfg: Config):
@@ -169,7 +172,8 @@ def write_spectrum_streaming(f: IO[bytes], chunk_iter, cfg: Config) -> int:
             b = _format_chunk(
                 codes[s:e], counts[s:e], cfg.k, sep, cfg.out_counts_only
             )
-            f.write(b)
+            with span("write/io"):
+                f.write(b)
             n += len(b)
     return n
 
@@ -178,7 +182,8 @@ def write_spectrum(f: IO[bytes], spectrum, cfg: Config) -> int:
     """Write the full spectrum; returns bytes written."""
     n = 0
     for block in spectrum_chunks(spectrum, cfg):
-        f.write(block)
+        with span("write/io"):
+            f.write(block)
         n += len(block)
     return n
 

@@ -19,6 +19,12 @@ batchers while pinned host buffers and a side CUDA stream keep the next
 batches' H2D copies in flight during the current step.
 `per_record_spectra` counts each record of an input on its own (count
 --per-record), through the same batchers and one reused stager.
+
+Its spans (`utils.prof`): `batcher`, each batch the producer thread draws
+(not its wait for room in the queue); `host_batches/stage`, a batch's
+pinned copy and H2D launch in the consumer; `host_batches` (the step
+loop's wait for the next staged batch) and `dispatch` (`counter.step`)
+of `run_count`; `finalize` of `count_file`.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from findkmer_torch.io.fasta import (
 from findkmer_torch.io.fastq import FastqReader, sniff_format, sniff_head
 from findkmer_torch.io.sam import BamReader, SamReader
 from findkmer_torch.utils.malloc_tuning import tune_for_streaming
+from findkmer_torch.utils.prof import span
 
 tune_for_streaming()  # keep big freed buffers on the heap (see _BatchEmitter)
 
@@ -603,7 +610,8 @@ def _prefetch_inline(batches, depth: int, put, take) -> Iterator:
                 b = next(it, None)
                 if b is None:
                     break
-                dq.append(put(b))
+                with span("host_batches/stage"):
+                    dq.append(put(b))
             if not dq:
                 return
             yield take(dq.popleft())
@@ -635,11 +643,13 @@ def _prefetch_threaded(batches, depth: int, put, take) -> Iterator:
         return False
 
     def producer():
+        it = iter(batches)
         try:
-            for b in batches:
-                if not _put(b):
+            while True:
+                with span("batcher"):
+                    b = next(it, _END)
+                if not _put(b) or b is _END:
                     return
-            _put(_END)
         except BaseException as e:  # surface errors in the consumer
             _put(e)
 
@@ -657,7 +667,8 @@ def _prefetch_threaded(batches, depth: int, put, take) -> Iterator:
                 elif isinstance(item, BaseException):
                     raise item
                 else:
-                    dq.append(put(item))
+                    with span("host_batches/stage"):
+                        dq.append(put(item))
             if not dq:
                 break
             yield take(dq.popleft())
@@ -690,10 +701,10 @@ def run_count(
     not yet finalized.  row_sort and dense_kernel pick the counter's
     kernels (`models/counter.py`).
 
-    Pass a utils.prof.PhaseTimers to get a host/dispatch breakdown
-    (device work is async: "host_batches" is the wait for the next
-    staged batch, "dispatch" is step submission; a sparse step also
-    runs its compactions)."""
+    The spans (utils.prof; `timers`, a PhaseTimers, gets them too):
+    device work is async, so "host_batches" is the wait for the next
+    staged batch and "dispatch" is step submission; a sparse step also
+    runs its compactions."""
     from findkmer_torch.models.counter import make_counter
 
     paths = [paths] if isinstance(paths, (str, os.PathLike)) else list(paths)
@@ -709,18 +720,12 @@ def run_count(
     it = prefetch_for(counter, host_batches(), cfg.prefetch)
     try:
         while True:
-            if timers is None:
+            with span("host_batches", timers):
                 rows = next(it, None)
-            else:
-                with timers.phase("host_batches"):
-                    rows = next(it, None)
             if rows is None:
                 break
-            if timers is None:
+            with span("dispatch", timers):
                 state = counter.step(state, rows)
-            else:
-                with timers.phase("dispatch"):
-                    state = counter.step(state, rows)
     finally:
         it.close()  # stops the producer thread if a step raised
     return counter, state
@@ -741,13 +746,11 @@ def count_file(
 
     Returns the finalized spectrum: dense np counts, or sparse (codes
     uint64, counts int64); formatting lives in findkmer_torch/output.py.
-    "finalize" in `timers` includes the final device drain."""
+    The span "finalize" includes the final device drain."""
     counter, state = run_count(path, cfg, device, stats=stats,
                                timers=timers, row_sort=row_sort,
                                dense_kernel=dense_kernel)
-    if timers is None:
-        return counter.finalize(state)
-    with timers.phase("finalize"):
+    with span("finalize", timers):
         return counter.finalize(state, timers=timers)
 
 
