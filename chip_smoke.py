@@ -90,6 +90,19 @@ final ok-line is not printed.
      spans' sort inside shared memory, each merge pass, the copy home)
      from a torch.profiler trace, the pass count and the pass-count
      bound (passes x the bytes bound), on the `rowsort_timing` line
+ 5b. C2 (the run-length encoding) vs `rle_rows_reference` on the card,
+     bit for bit: implicit and counted (int32 and int64 counts, in
+     place), int32 and int64 codes, 1, 3 and 37 rows of every row length
+     at a seam of the kernel (a lane's slots, a warp's 512, the tile of
+     4096, rows straddling tiles, 2^16 + 3), sorted rows of short runs,
+     of distinct codes, of one code and of the sentinel, the four timed
+     shapes, and the running sum's wrap.  Then the median CUDA-event ms
+     of the kernel and of the plain version, in turn, at the store's
+     shapes in the benchmark's cells ((262144, 768) and (262144, 1024)
+     int64 implicit, (262144, 2048) int64 + int32 counts, the cross-row
+     dedup's (1, 2^29) + int32 counts), beside the bound (keys read once,
+     counts read once, totals written once at 3.35 TB/s), on the
+     `rle_timing` line
   6. dense main path: a seeded 256 Mbase multi-record FASTA (N runs,
      lowercase, IUPAC codes, poly-A runs) counted by `findkmer_torch.cli
      count` at --batch-rows 1024 on cuda for k=8, k=8 --canonical and
@@ -101,12 +114,14 @@ final ok-line is not printed.
      batch staged on the card, for each of the three (with the share of
      its windows that are valid)
   7. sparse main path: the same genome at k=21 --canonical and k=15
-     (C1 on every ingest, row sort K3), each also run by the all-plain
-     route (the plain row sort, and the plain extraction through a tap on
-     the name `counter.ingest` calls); every ingest of the kernel route
-     must be a C1 launch and every row sort of every compaction a K3
-     launch, the all-plain route must launch neither, and the two outputs
-     must hash equal (streamed sha256; each file is deleted once hashed).
+     (C1 on every ingest, row sort K3, run-length encoding C2), each
+     also run by the all-plain route (the plain row sort and run-length
+     encoding, and the plain extraction through a tap on the name
+     `counter.ingest` calls); every ingest of the kernel route must be a
+     C1 launch and every row sort of every compaction a K3 launch, C2
+     must launch, none of them on rows longer than a tile, the all-plain
+     route must launch none of the three, and the two outputs must hash
+     equal (streamed sha256; each file is deleted once hashed).
      Prints bases/s and the CLI's phases, with the row sorts' device ms
   8. sparse device step: a staged k=21 --canonical batch: ingest ms (C1,
      and the plain extraction beside it, the two outputs equal),
@@ -276,7 +291,8 @@ wall time the device was busy.
 
 With --only rowsort the script runs phases 1, 2 and 5 (and first prints
 what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
-the instructions of its production kernels by opcode); with --only window
+the instructions of its production kernels by opcode); with --only rle
+phases 1, 2 and 5b (with `ptxas -v` of rle.cu); with --only window
 phases 1 to 4 (with the same of histogram.cu and window_histogram.cu)
 and phase 4b (with `ptxas -v` of window_codes.cu): the quick check of
 an edit to those kernels; with --only stream phases
@@ -292,14 +308,14 @@ with each run's wall, dispatch seconds and peak device memory, the
 outputs sha256-equal.  Each of the nine prints no summary and no
 ok-line.
 
-The line before the last is a JSON summary of the kernels K1, K2, K3
-and C1 (for each its launches on the main paths: the `count` runs, each
+The line before the last is a JSON summary of the kernels K1, K2, K3,
+C1 and C2 (for each its launches on the main paths: the `count` runs, each
 run that phase 11 makes in this process, the `--per-record` runs on the
 card of phase 10, the filter runs of phase 12 (C1 alone), the runs on the
 card of phase 13, the mesh runs of phase 14, the installed package's runs
 of phase 15, the `bench` runs of phase 16 and the driver and `entry()`
 runs of phase 17 (`launches_by_path`), each counted from 0, and for K3
-apart those on rows longer than a tile
+and C2 apart those on rows longer than a tile
 (`long_launches_by_path`: the dedups of the spill paths, none in a plain
 `count` or `stream`); its ms beside the plain version's, the one library
 call's where there is one, and its bound); the last line is
@@ -341,6 +357,10 @@ from findkmer_torch.ops.cuda.histogram_kernel import (
     histogram_cuda,
     histogram_reference,
     private_bins,
+)
+from findkmer_torch.ops.cuda.rle_kernel import (
+    rle_rows_cuda,
+    rle_rows_reference,
 )
 from findkmer_torch.ops.cuda.rowsort_kernel import (
     sort_plan,
@@ -406,6 +426,21 @@ SORT_CASES = ("random", "equal", "sentinel", "sorted", "reversed")
 SORT_SEAMS = (1, 2, 7, 8, 9, 255, 256, 257, 1023, 1025, 2047, 2049, 4096,
               4097, 8191, 8192, 8193, 12289, 16385, 32769, (1 << 16) + 3)
 SEAM_ROWS = 37
+# C2 timed at the store's shapes in the cells: the raw compaction of
+# `count --per-input` (768 columns), of `count` and `histo` mid-stream
+# (1024), the finalize's count-carrying one (2048), the cross-row dedup's
+# one row of 2^29 (`histo` of a 40x read set)
+RLE_SHAPES = (
+    ("raw_768", (262144, 768), torch.int64, None),
+    ("raw_1024", (262144, 1024), torch.int64, None),
+    ("counted_2048", (262144, 2048), torch.int64, torch.int32),
+    ("dedup_row", (1, 1 << 29), torch.int64, torch.int32),
+)
+# row lengths at C2's seams: a lane's 2 or 4 slots, a warp's 512, the
+# tile of 4096, rows that straddle tiles (768, 1500) and longer rows
+RLE_SEAMS = (1, 2, 3, 5, 255, 256, 511, 512, 513, 767, 768, 1024, 1500,
+             2048, 4095, 4096, 4097, 8193, (1 << 16) + 3)
+RLE_CASES = ("runs", "distinct", "one_key", "sentinel")
 # the card's published peaks (H100 SXM): device memory, and 32-bit
 # operations outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1250,28 +1285,136 @@ def phase_rowsort_timing(seed: int) -> dict:
     return timing
 
 
+def _rle_input(shape, kd, case, gen: torch.Generator) -> torch.Tensor:
+    """Sorted rows: `runs` a run of two slots a code on average (the
+    store after a sort), `distinct` no repeat, `one_key` a row of one
+    code, `sentinel` a row of the sentinel; the first three end in ~10%
+    sentinels."""
+    dev = torch.device("cuda")
+    sent = torch.iinfo(kd).max
+    if case == "one_key":
+        return torch.full(shape, 12345, dtype=kd, device=dev)
+    if case == "sentinel":
+        return torch.full(shape, sent, dtype=kd, device=dev)
+    step = torch.randint(0 if case == "runs" else 1, 3, shape,
+                         generator=gen, device=dev, dtype=kd)
+    rows = step.cumsum(1, dtype=kd) if shape[0] > 1 else \
+        step.reshape(-1).cumsum(0, dtype=kd).reshape(shape)
+    live = shape[1] - shape[1] // 10
+    rows[:, live:] = sent
+    return rows
+
+
+def phase_rle_vs_plain(seed: int) -> int:
+    """C2 vs its plain version, bit for bit (`torch.equal`), implicit and
+    counted (int32 and int64 counts, written in place), int32 and int64
+    codes, at C2's seams for 1, 3 and 37 rows, every case, at the four
+    timed shapes, and the running sum's wrap."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    dts = (torch.int32, torch.int64)
+    combos = [((G, C), kd, cd) for C in RLE_SEAMS for G in (1, 3, 37)
+              for kd in dts for cd in (None,) + dts]
+    combos += [(shape, kd, cd) for _, shape, kd, cd in RLE_SHAPES]
+    n_cases = 0
+    launches0 = rle_rows_cuda.launches
+    long0 = rle_rows_cuda.long_launches
+    for shape, kd, cd in combos:
+        for case in RLE_CASES:
+            if shape[1] >= 1 << 20 and case != "runs":
+                continue
+            codes = _rle_input(shape, kd, case, gen)
+            cnt = None if cd is None else torch.randint(
+                0, 1 << 20, shape, generator=gen, device="cuda", dtype=cd)
+            want = rle_rows_reference(codes, cnt)
+            keep = codes.clone() if codes.numel() < 1 << 26 else None
+            got = rle_rows_cuda(codes, cnt)  # in place over cnt
+            torch.cuda.synchronize()
+            what = f"C2 != plain at {shape} {kd} counts={cd} case={case}"
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(what)
+            if keep is not None and not torch.equal(codes, keep):
+                raise AssertionError(f"{what}: the codes moved")
+            n_cases += 1
+            del codes, cnt, want, got, keep
+        torch.cuda.empty_cache()
+    for cd, big in ((torch.int32, 2_000_000_000),
+                    (torch.int64, (1 << 62) + 3)):
+        codes = torch.tensor([[1, 2, 3, 4, 4, 5, (1 << 63) - 1]],
+                             device="cuda")
+        cnt = torch.tensor([[big, big, big, 5, 1, 7, 0]], dtype=cd,
+                           device="cuda")
+        if rle_rows_cuda(codes, cnt).tolist() != [[big, big, big, 0, 6, 7,
+                                                    0]]:
+            raise AssertionError(f"C2's totals wrap at {cd}")
+        n_cases += 1
+    say("rle_vs_plain", cases=n_cases, max_abs_err=0,
+        launches=rle_rows_cuda.launches - launches0,
+        long_launches=rle_rows_cuda.long_launches - long0)
+    return 0
+
+
+def phase_rle_timing(seed: int) -> dict:
+    """Median CUDA-event ms of C2 and of its plain version at the store's
+    shapes in the cells (`RLE_SHAPES`), timed in turn.  Counted mode runs
+    in place: its later runs encode totals instead of counts, the same
+    bytes and the same work.  The bound: keys read once, counts read once
+    (counted), totals written once.  The dedup row's plain version takes
+    seconds and ~25 GiB a call: three runs after one warm-up."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    timing = {}
+    for name, shape, kd, cd in RLE_SHAPES:
+        codes = _rle_input(shape, kd, "runs", gen)
+        cnt = None if cd is None else torch.ones(shape, dtype=cd,
+                                                 device="cuda")
+        out_bytes = codes.numel() * (4 if cd is None else cnt.element_size())
+        nbytes = codes.nbytes + (0 if cnt is None else cnt.nbytes) \
+            + out_bytes
+        kernel = _time_alternating(
+            {"kernel": lambda: rle_rows_cuda(codes, cnt)})["kernel"]
+        reps = 3 if shape[1] >= 1 << 20 else 20
+        plain = [_median_ms(lambda: rle_rows_reference(codes, cnt),
+                            reps=reps, warmup=1) for _ in range(2)]
+        bound = _bound(nbytes, 0)
+        timing[name] = {"shape": list(shape), "keys": str(kd),
+                        "counts": str(cd), "kernel": kernel,
+                        "plain": {"ms": statistics.median(plain),
+                                  "runs": plain},
+                        "library_ms": None, **bound,
+                        "share_of_bound": bound["bound_ms"] / kernel["ms"]}
+        del codes, cnt
+        torch.cuda.empty_cache()
+    say("rle_timing", timing=timing)
+    return timing
+
+
 class _LongRows:
-    """K3's launches on rows longer than a tile (`sort_rows_cuda.
-    long_launches`: the merge passes) as a counter with `launches`, so the
-    phases count them from 0 beside the wrappers' own."""
+    """A wrapper's launches on rows longer than a tile (`long_launches`:
+    K3's merge passes, C2's look-back across rows) as a counter with
+    `launches`, so the phases count them from 0 beside the wrappers'
+    own."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
 
     @property
     def launches(self) -> int:
-        return sort_rows_cuda.long_launches
+        return self.wrapper.long_launches
 
     @launches.setter
     def launches(self, n: int) -> None:
-        sort_rows_cuda.long_launches = n
+        self.wrapper.long_launches = n
 
 
-SORT_LONG = _LongRows()
 # each kernel's launch counter, by its name in the summary line
 WRAPPERS = {"histogram_cuda": histogram_cuda,
             "fused_window_histogram_cuda": fused_window_histogram_cuda,
             "sort_rows_cuda": sort_rows_cuda,
-            "sort_rows_cuda_long": SORT_LONG,
-            "window_codes_packed_cuda": window_codes_packed_cuda}
+            "sort_rows_cuda_long": _LongRows(sort_rows_cuda),
+            "window_codes_packed_cuda": window_codes_packed_cuda,
+            "rle_rows_cuda": rle_rows_cuda,
+            "rle_rows_cuda_long": _LongRows(rle_rows_cuda)}
 C1 = "window_codes_packed_cuda"
+C2 = "rle_rows_cuda"
 
 
 class _PlainExtraction:
@@ -1353,15 +1496,18 @@ def _sha256_and_delete(path: str) -> tuple:
 
 def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
     """The 256 Mbase genome through the CLI at k=21 --canonical and
-    k=15: C1 on every ingest and K3 on every row sort, outputs equal to
-    the all-plain route's (the plain row sort, and the plain extraction
-    by `_PlainExtraction`).  -> (K3 launches, of them on long rows, C1
-    launches, the runs)."""
+    k=15: C1 on every ingest, K3 on every row sort and C2 on every
+    run-length encoding, outputs equal to the all-plain route's (the
+    plain row sort and run-length encoding, and the plain extraction by
+    `_PlainExtraction`).  -> (K3 launches, of them on long rows, C1
+    launches, C2 launches, the runs)."""
     runs = []
     with _RowSortTap() as tap:
         tap.timed = True
         sort_rows_cuda.launches = 0
         sort_rows_cuda.long_launches = 0
+        rle_rows_cuda.launches = 0
+        rle_rows_cuda.long_launches = 0
         histogram_cuda.launches = 0
         fused_window_histogram_cuda.launches = 0
         window_codes_packed_cuda.launches = 0
@@ -1371,6 +1517,7 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 out = os.path.join(tmp, f"sparse_k{k}_{row_sort}.tsv")
                 launches0, calls0 = sort_rows_cuda.launches, tap.calls
                 c1_0 = window_codes_packed_cuda.launches
+                c2_0 = rle_rows_cuda.launches
                 tap.sort_ms()
                 with (_PlainExtraction() if row_sort == "plain"
                       else contextlib.nullcontext()):
@@ -1383,21 +1530,23 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 sort_ms = tap.sort_ms()
                 launched = sort_rows_cuda.launches - launches0
                 c1 = window_codes_packed_cuda.launches - c1_0
+                c2 = rle_rows_cuda.launches - c2_0
                 sorts = tap.calls - calls0
                 want = sorts if row_sort == "auto" else 0
                 want_c1 = stats["batches"] if row_sort == "auto" else 0
-                if sorts == 0 or launched != want or c1 != want_c1:
+                if (sorts == 0 or launched != want or c1 != want_c1
+                        or (c2 == 0) != (row_sort == "plain")):
                     raise AssertionError(
                         f"k={k} row_sort={row_sort}: {launched} K3 launches "
                         f"for {sorts} row sorts, {c1} C1 launches for "
-                        f"{stats['batches']} batches"
+                        f"{stats['batches']} batches, {c2} C2 launches"
                     )
                 digest, size = _sha256_and_delete(out)
                 digests[row_sort] = digest
                 run = {"k": k, "args": extra, "row_sort": row_sort,
                        "extraction": ("C1" if row_sort == "auto"
                                       else "plain"),
-                       "c1_launches": c1,
+                       "c1_launches": c1, "c2_launches": c2,
                        "row_sorts": sorts, "launches": launched,
                        "row_sort_device_ms": sort_ms,
                        "batches": stats["batches"], "bases": stats["bases"],
@@ -1411,19 +1560,21 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 torch.cuda.empty_cache()
             if digests["auto"] != digests["plain"]:
                 raise AssertionError(
-                    f"k={k} {extra}: the output of C1 and K3 differs from "
-                    "the all-plain route's (plain extraction and row sort)"
+                    f"k={k} {extra}: the output of C1, K3 and C2 differs "
+                    "from the all-plain route's (plain extraction, row sort "
+                    "and run-length encoding)"
                 )
             say("sparse_main_path_identical", k=k, args=extra,
                 sha256=digests["auto"])
         if histogram_cuda.launches or fused_window_histogram_cuda.launches:
             raise AssertionError("the sparse path launched a histogram")
-        if sort_rows_cuda.long_launches:
+        if sort_rows_cuda.long_launches or rle_rows_cuda.long_launches:
             raise AssertionError(
-                f"a plain count sorted {sort_rows_cuda.long_launches} rows "
-                "longer than a tile (no dedup expected)")
+                f"a plain count sorted {sort_rows_cuda.long_launches} and "
+                f"encoded {rle_rows_cuda.long_launches} rows longer than a "
+                "tile (no dedup expected)")
     return (sort_rows_cuda.launches, sort_rows_cuda.long_launches,
-            window_codes_packed_cuda.launches, runs)
+            window_codes_packed_cuda.launches, rle_rows_cuda.launches, runs)
 
 
 def phase_sparse_device_step(fasta: str) -> None:
@@ -1694,14 +1845,17 @@ def phase_stream(tmp: str, seed: int) -> dict:
             or len(saves["files"]) != 3
             or launched["histogram_cuda"]
             or launched["fused_window_histogram_cuda"]
-            or launched[C1] != full["batches"]):
+            or launched[C1] != full["batches"]
+            or not 0 < launched[C2] <= k3
+            or launched["rle_rows_cuda_long"]):
         raise AssertionError(
             f"sparse stream: launches {launched} for {sorts.calls} row "
             f"sorts ({SPARSE_STREAM_SORTS} expected), {full['batches']} "
             f"batches and {len(saves['files'])} checkpoints")
     digest, size = _hashed(out, want["sparse"], "sparse stream")
     say("stream_sparse", args=STREAM_SPARSE, batches=full["batches"],
-        k3_launches=k3, c1_launches=launched[C1], row_sorts=sorts.calls,
+        k3_launches=k3, c1_launches=launched[C1], c2_launches=launched[C2],
+        row_sorts=sorts.calls,
         checkpoints=saves, checkpoint_s=saves["seconds"], wall_s=wall,
         cli_wall_s=full["wall_s"], phases=full["phases"], out_bytes=size,
         sha256=digest, identical_to_count=True)
@@ -1754,6 +1908,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
     # the dedup before each spill decision sorts the store as one row
     if (launched["sort_rows_cuda"] != sorts.calls
             or not launched["sort_rows_cuda_long"]
+            or not launched["rle_rows_cuda_long"]
             or launched[C1] != stats["batches"]):
         raise AssertionError(
             f"count --spill: launches {launched} for {sorts.calls} row sorts "
@@ -1769,7 +1924,9 @@ def phase_stream(tmp: str, seed: int) -> dict:
         merge_blocks=ph["finalize/merge"]["calls"],
         k3_launches=launched["sort_rows_cuda"],
         k3_long_launches=launched["sort_rows_cuda_long"],
-        c1_launches=launched[C1], row_sorts=sorts.calls, wall_s=wall,
+        c1_launches=launched[C1], c2_launches=launched[C2],
+        c2_long_launches=launched["rle_rows_cuda_long"],
+        row_sorts=sorts.calls, wall_s=wall,
         cli_wall_s=stats["wall_s"], bases_per_s=stats["bases_per_s"],
         phases=ph, out_bytes=size, sha256=digest, identical_to_count=True,
         run_files_left=0)
@@ -2073,6 +2230,7 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
     fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = 0
     window_codes_packed_cuda.launches = 0
+    rle_rows_cuda.launches = 0
     for k, extra in ((8, []), (8, ["--canonical"]), (10, [])):
         want_bytes = None
         # each route once (the mirrored second pass went when the stream
@@ -2115,8 +2273,10 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
         say("main_path_identical", k=k, args=extra, runs=len(order),
             bytes=len(want_bytes),
             sha256=hashlib.sha256(want_bytes).hexdigest())
-    if sort_rows_cuda.launches or window_codes_packed_cuda.launches:
-        raise AssertionError("the dense path launched the row sort or C1")
+    if (sort_rows_cuda.launches or window_codes_packed_cuda.launches
+            or rle_rows_cuda.launches):
+        raise AssertionError("the dense path launched the row sort, C1 or "
+                             "C2")
     return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
             runs)
 
@@ -2143,6 +2303,7 @@ from findkmer_torch import cli, pipeline
 from findkmer_torch.io import native
 from findkmer_torch.ops.cuda import _build
 from findkmer_torch.ops.cuda.histogram_kernel import histogram_cuda
+from findkmer_torch.ops.cuda.rle_kernel import rle_rows_cuda
 from findkmer_torch.ops.cuda.rowsort_kernel import sort_rows_cuda
 from findkmer_torch.ops.cuda.window_codes_kernel import (
     window_codes_packed_cuda)
@@ -2166,6 +2327,7 @@ report = {"package": findkmer_torch.__file__, "csrc": str(_build.CSRC),
 for name, flags in runs:
     histogram_cuda.launches = fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = sort_rows_cuda.long_launches = 0
+    rle_rows_cuda.launches = rle_rows_cuda.long_launches = 0
     window_codes_packed_cuda.launches = 0
     err = io.StringIO()
     t0 = time.perf_counter()
@@ -2183,7 +2345,9 @@ for name, flags in runs:
                 fused_window_histogram_cuda.launches,
             "sort_rows_cuda": sort_rows_cuda.launches,
             "sort_rows_cuda_long": sort_rows_cuda.long_launches,
-            "window_codes_packed_cuda": window_codes_packed_cuda.launches}}
+            "window_codes_packed_cuda": window_codes_packed_cuda.launches,
+            "rle_rows_cuda": rle_rows_cuda.launches,
+            "rle_rows_cuda_long": rle_rows_cuda.long_launches}}
 report["jax_package"] = "findkmer_tpu" in sys.modules
 print(json.dumps(report))
 """
@@ -3044,7 +3208,8 @@ def phase_tools(tmp: str, seed: int) -> dict:
             row_sorts > 0 and launched["sort_rows_cuda"] == row_sorts
             and launched["histogram_cuda"] == 0 and k2 >= 2
             and launched["fused_window_histogram_cuda"] == k2),
-        "C1 on the k=21 counts": launched[C1] > 0,
+        "C1 and C2 on the k=21 counts": (launched[C1] > 0
+                                         and launched[C2] > 0),
     }
     failed = [c for c, ok in checks.items() if not ok]
     say("tools_checks", passed=len(checks) - len(failed), failed=failed,
@@ -3231,7 +3396,8 @@ def phase_mesh(tmp: str, seed: int) -> dict:
     # the spill leg dedups its shards' stores as long rows
     if (launched["fused_window_histogram_cuda"] == 0 or sorts == 0
             or launched["sort_rows_cuda"] != sorts
-            or not launched["sort_rows_cuda_long"] or not launched[C1]):
+            or not launched["sort_rows_cuda_long"] or not launched[C1]
+            or not launched[C2]):
         raise AssertionError(f"mesh phase: launches {launched} for {sorts} "
                              "row sorts")
     say("mesh_launches", **launched, row_sorts=sorts)
@@ -3363,6 +3529,7 @@ def phase_bench() -> dict:
         k2 = launched["fused_window_histogram_cuda"]
         k3 = launched["sort_rows_cuda"]
         c1 = launched[C1]
+        c2 = launched[C2]
         check = {}
         if "--phases" in argv:
             if sorted(line["phases"]) != BENCH_PHASES:
@@ -3379,11 +3546,12 @@ def phase_bench() -> dict:
             check = _bench_check(bench.steps, bench.runs, dev)
             check["staged"] = {key: kw[key] for key in (
                 "k", "batch_rows", "chunk_len", "steps", "canonical")}
-        # K2 once a step (dense), C1 on every ingest and K3 on every row
-        # sort (sparse), K1 never
+        # K2 once a step (dense), C1 on every ingest, K3 on every row
+        # sort and C2 on every compaction (sparse), K1 never
         if (k2 != want_k2 or launched["histogram_cuda"] or k3 != sorts
                 or (line["k"] > 10) != (k3 > 0)
-                or (line["k"] > 10) != (c1 > 0)):
+                or (line["k"] > 10) != (c1 > 0)
+                or (line["k"] > 10) != (c2 > 0)):
             raise AssertionError(f"bench {argv}: launches {launched}, "
                                  f"{sorts} row sorts, K2 expected {want_k2}")
         for key, n in launched.items():
@@ -3392,7 +3560,7 @@ def phase_bench() -> dict:
         say("bench_run", run=name, argv=argv, result=line,
             table=[ln for ln in err.getvalue().splitlines()
                    if ln.startswith("#")],
-            k2_launches=k2, k3_launches=k3, c1_launches=c1,
+            k2_launches=k2, k3_launches=k3, c1_launches=c1, c2_launches=c2,
             k3_long_launches=launched["sort_rows_cuda_long"],
             row_sorts=sorts, peak_device_bytes=peak, cli_wall_s=wall,
             **check)
@@ -3524,12 +3692,12 @@ def phase_bench_driver(smi: str) -> dict:
     if kinds != ["_dense_run"] + ["_sparse_run"] * 4:
         raise AssertionError(f"bench driver: staged runs {kinds}")
     # K2 once a dense step (and its warm-up), C1 once an ingest of each of
-    # a sparse call's two runs, K3 once a compaction (one a run), K1 and
-    # K3's long rows never
+    # a sparse call's two runs, K3 and C2 once a compaction (one a run),
+    # K1 and long rows never
     want = {"histogram_cuda": 0, "sort_rows_cuda_long": 0,
             "fused_window_histogram_cuda": bench.runs[0][1]["steps"] + 1,
             C1: sum(2 * kw["steps"] for _, kw, *_ in bench.runs[1:]),
-            "sort_rows_cuda": 2 * 4}
+            "sort_rows_cuda": 2 * 4, C2: 2 * 4, "rle_rows_cuda_long": 0}
     if launched != want or sorts != want["sort_rows_cuda"]:
         raise AssertionError(f"bench driver: launches {launched} for {sorts}"
                              f" row sorts, {want} expected")
@@ -3601,10 +3769,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
-    ap.add_argument("--only", choices=["rowsort", "window", "stream",
-                                       "filter", "tools", "mesh", "spill",
-                                       "installed", "bench"],
+    ap.add_argument("--only", choices=["rowsort", "rle", "window",
+                                       "stream", "filter", "tools", "mesh",
+                                       "spill", "installed", "bench"],
                     help="run only the row sort's phases (K3), only the "
+                         "run-length encoding's (C2), only the "
                          "window kernels' (K1, K2 and C1), only the "
                          "restartable stream's, only read filtering's, "
                          "only the spectrum tools', only the mesh's, only "
@@ -3626,6 +3795,11 @@ def main() -> int:
         phase_sass()
         phase_rowsort_vs_plain(args.seed)
         phase_rowsort_timing(args.seed)
+        return 0
+    if args.only == "rle":
+        phase_ptxas("rle.cu")
+        phase_rle_vs_plain(args.seed)
+        phase_rle_timing(args.seed)
         return 0
     if args.only == "stream":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3673,12 +3847,14 @@ def main() -> int:
         return 0
     sort_err = phase_rowsort_vs_plain(args.seed)
     sort_timing = phase_rowsort_timing(args.seed)
+    rle_err = phase_rle_vs_plain(args.seed)
+    rle_timing = phase_rle_timing(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fasta = phase_genome(tmp, args.seed)
         launches, k2_launches, runs = phase_main_path(fasta, tmp,
                                                       args.profile)
-        sort_launches, long_launches, c1_launches, sparse_runs = \
-            phase_sparse_main_path(tmp, fasta)
+        sort_launches, long_launches, c1_launches, c2_launches, \
+            sparse_runs = phase_sparse_main_path(tmp, fasta)
         phase_sparse_device_step(fasta)
         dense8 = next(r for r in runs if r["k"] == 8 and not r["args"]
                       and r["route"] == "fused")
@@ -3688,12 +3864,15 @@ def main() -> int:
             "k8": {"sha256": dense8["sha256"], "launches": {
                 "histogram_cuda": dense8["k1_launches"],
                 "fused_window_histogram_cuda": dense8["k2_launches"],
-                "sort_rows_cuda": 0, "sort_rows_cuda_long": 0, C1: 0}},
+                "sort_rows_cuda": 0, "sort_rows_cuda_long": 0, C1: 0,
+                C2: 0, "rle_rows_cuda_long": 0}},
             "k21_canonical": {"sha256": sparse21["sha256"], "launches": {
                 "histogram_cuda": 0, "fused_window_histogram_cuda": 0,
                 "sort_rows_cuda": sparse21["launches"],
                 "sort_rows_cuda_long": 0,
-                C1: sparse21["c1_launches"]}}}, smi)
+                C1: sparse21["c1_launches"],
+                C2: sparse21["c2_launches"], "rle_rows_cuda_long": 0}}},
+            smi)
         os.unlink(fasta)
         phase_oracle(tmp)
         stream_launches = phase_stream(tmp, args.seed)
@@ -3825,6 +4004,31 @@ def main() -> int:
                             **bound_of(t["bound"]),
                             "share_of_bound": t["share_of_bound"]}
                      for name, t in c1_timing.items()},
+        "card": smi,
+    }, {
+        "name": "rle_rows_cuda",
+        "route": "cuda",
+        "source": "findkmer_torch/csrc/rle.cu",
+        # the XLA scans of the JAX package's compactions, not a Pallas
+        # kernel
+        "replaces": "findkmer_tpu/ops/sparse.py:243",
+        **launches_of(C2, c2_launches),
+        # of them on rows longer than a tile: the look-back across rows
+        # (none on the `count` paths: phase 7 checks)
+        **{f"long_{key}": v for key, v in launches_of(
+            "rle_rows_cuda_long", 0).items()},
+        "max_abs_err": rle_err,
+        "ms": rle_timing["raw_1024"]["kernel"]["ms"],
+        "plain_ms": rle_timing["raw_1024"]["plain"]["ms"],
+        **bound_of(rle_timing["raw_1024"]),
+        "library_ms": None,
+        "plain": "rle_kernel.rle_rows_reference: the torch chain of "
+                 "compare, cummax, cumsum and gather",
+        "shape": rle_timing["raw_1024"]["shape"],
+        "by_shape": {name: {"shape": t["shape"], "ms": t["kernel"]["ms"],
+                            "plain_ms": t["plain"]["ms"], **bound_of(t),
+                            "share_of_bound": t["share_of_bound"]}
+                     for name, t in rle_timing.items()},
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,11 @@ Its device kernels are hand-written CUDA for Hopper, built with nvcc at
 first use: the window-code histogram K1 (`csrc/histogram.cu`, wrapped by
 `ops/cuda/histogram_kernel.py`), the fused window histogram K2 of the
 dense step (`csrc/window_histogram.cu`,
-`ops/cuda/window_histogram_kernel.py`) and the store's row sort K3
-(`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`).  The sources ship in
+`ops/cuda/window_histogram_kernel.py`), the sparse path's window
+extraction C1 (`csrc/window_codes.cu`, `ops/cuda/window_codes_kernel.py`),
+the store's row sort K3 (`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`)
+and its run-length encoding C2 (`csrc/rle.cu`,
+`ops/cuda/rle_kernel.py`).  The sources ship in
 the package, so an installed tree builds them too.
 
 Importing the package stays cheap: no torch import here.

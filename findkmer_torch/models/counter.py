@@ -33,8 +33,9 @@ package's log-structured store.
     finalize / checkpoint): one row-wise sort of [store + raw] and a
     run-length encoding into a (G, cols) store of sorted rows, where
     duplicates keep their code with count 0; holes are squeezed out when
-    they pass half the row.  The row sort is K3 (`row_sort`: "auto" is
-    the kernel on CUDA and the plain version on the CPU; "kernel" and
+    they pass half the row.  The row sort is K3 and the run-length
+    encoding C2 (`ops/cuda/rle_kernel.py`; `row_sort`: "auto" is the
+    kernels on CUDA and their plain versions on the CPU; "kernel" and
     "plain" force one).
   * finalize: one flat sort of the live entries, run totals, and the
     distinct sorted spectrum pulled to the host in chunks through pinned

@@ -174,6 +174,14 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(i64), ptr,
     ]
     lib.fk_atomic_rate.restype = ctypes.c_int
+    lib.fk_rle_rows.argtypes = [
+        ptr, ptr, ptr, i64, i64, ctypes.c_int, ctypes.c_int, ptr, ptr,
+    ]
+    lib.fk_rle_rows.restype = ctypes.c_int
+    lib.fk_rle_rows_status_words.argtypes = [i64]
+    lib.fk_rle_rows_status_words.restype = i64
+    lib.fk_rle_rows_tile.argtypes = []
+    lib.fk_rle_rows_tile.restype = i64
     lib.fk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fk_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,7 +4,7 @@ global finalize.
 Counterpart of `findkmer_tpu/ops/sparse.py`.  For k above the dense
 limit the store is log-structured: raw window codes append unsorted, and
 a compaction sorts each row of the (G, C) store and run-length encodes it
-with scans (`compact_raw_2d` for raw codes with an implicit count of 1,
+(`compact_raw_2d` for raw codes with an implicit count of 1,
 `compact_counted_2d` when the store's counts re-enter with new raw
 codes).  Duplicates keep their code with count 0 ("holes"), so a row
 stays sorted and can re-enter the next sort unchanged; `squeeze_2d` pushes
@@ -19,8 +19,10 @@ Codes are one signed integer (`window.code_dtype`) whose max value
 (`window.sentinel`) marks empty slots: the JAX (hi, lo) pair, its u16 hi
 plane and its hole test on the hi word have no counterpart.  Every row
 sort goes through `ops/cuda/rowsort_kernel.sort_rows` (the K3 kernel, or
-its plain version); the flat finalize sort is `torch.sort`, as it was
-XLA's flat sort in the JAX package.
+its plain version), every run-length encoding through
+`ops/cuda/rle_kernel.rle_rows` (the C2 kernel, or its plain version: the
+torch scans that stand for the JAX package's); the flat finalize sort is
+`torch.sort`, as it was XLA's flat sort in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from findkmer_torch.ops.cuda.rle_kernel import rle_rows
 from findkmer_torch.ops.cuda.rowsort_kernel import sort_rows
 from findkmer_torch.ops.window import sentinel
 
@@ -48,56 +51,26 @@ def ladder(n: int, floor: int = 1 << 20) -> int:
         c *= 2
 
 
-def _adj_flags_2d(codes: torch.Tensor):
-    """(is_start, is_end, is_sent) of equal-code runs in sorted rows; a
-    row's edges compare against the sentinel, as in the JAX package."""
-    sent = sentinel(codes.dtype)
-    ne = codes[:, 1:] != codes[:, :-1]
-    is_start = torch.cat([codes[:, :1] != sent, ne], dim=1)
-    is_end = torch.cat([ne, codes[:, -1:] != sent], dim=1)
-    return is_start, is_end, codes == sent
-
-
-def _run_starts(is_start: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Index of each position's run start (cummax over the start flags:
-    positions are monotone, so the propagation is exact)."""
-    idx = torch.arange(is_start.shape[1], dtype=dtype,
-                       device=is_start.device)
-    return torch.cummax(torch.where(is_start, idx, 0), dim=1).values
-
-
-def rle_pos_2d(codes: torch.Tensor) -> torch.Tensor:
+def rle_pos_2d(codes: torch.Tensor,
+               count_dtype: torch.dtype = torch.int32,
+               plain: bool = False) -> torch.Tensor:
     """Run lengths of sorted rows with an implicit count of 1 per entry:
-    int32 (G, C), the run's length at its last position, 0 elsewhere and
-    at sentinels."""
-    is_start, is_end, is_sent = _adj_flags_2d(codes)
-    spos = _run_starts(is_start, torch.int32)
-    idx = torch.arange(codes.shape[1], dtype=torch.int32,
-                       device=codes.device)
-    run = idx - spos + 1
-    run.masked_fill_(~is_end | is_sent, 0)
-    return run
+    (G, C) of count_dtype, the run's length at its last position, 0
+    elsewhere and at sentinels.  The C2 kernel on the card, its plain
+    version on the CPU or with plain (`ops/cuda/rle_kernel.rle_rows`)."""
+    return rle_rows(codes, None, count_dtype, plain)
 
 
-def rle_val_2d(codes: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+def rle_val_2d(codes: torch.Tensor, cnt: torch.Tensor,
+               plain: bool = False) -> torch.Tensor:
     """Run totals of sorted rows carrying explicit counts: the sum of each
     run's counts at its last position, 0 elsewhere and at sentinels, in
-    cnt's dtype.
-
-    The sums are an int64 cumsum differenced at the run starts.  int64
-    arithmetic wraps modulo 2^64, so a run total is exact whenever it
-    fits the count dtype, whatever the row's running sum does (the JAX
-    package's `seg_totals` contract)."""
-    is_start, is_end, is_sent = _adj_flags_2d(codes)
-    c64 = cnt.to(torch.int64, copy=True)
-    cs = torch.cumsum(c64, dim=1)
-    excl = c64.neg_().add_(cs)  # cs - cnt, in c64's memory
-    before = excl.gather(1, _run_starts(is_start, torch.int64))
-    del excl
-    cs -= before
-    del before
-    cs.masked_fill_(~is_end | is_sent, 0)
-    return cs.to(cnt.dtype)
+    cnt's dtype.  A total is exact whenever it fits the count dtype,
+    whatever the row's running sum does (sums modulo 2^64: the JAX
+    package's `seg_totals` contract).  The C2 kernel on the card writes
+    the totals over cnt; its plain version (on the CPU, or with plain)
+    returns a new tensor.  Use the returned tensor."""
+    return rle_rows(codes, cnt, plain=plain)
 
 
 def compact_raw_2d(codes: torch.Tensor, count_dtype: torch.dtype,
@@ -106,16 +79,18 @@ def compact_raw_2d(codes: torch.Tensor, count_dtype: torch.dtype,
     counts, per-row distinct).  The row sort may run in place on
     `codes`."""
     codes, _ = sort_rows(codes, plain=plain)
-    cnt = rle_pos_2d(codes).to(count_dtype)
+    cnt = rle_pos_2d(codes, count_dtype, plain)
     return codes, cnt, torch.count_nonzero(cnt, dim=1)
 
 
 def compact_counted_2d(codes: torch.Tensor, cnt: torch.Tensor,
                        plain: bool = False):
     """Count-carrying compaction: one row sort of (code, count) pairs +
-    run totals.  The sort may run in place on both inputs."""
+    run totals.  The sort may run in place on `codes` and `cnt`, and the
+    totals over `cnt` (on the card): callers use the returned tensors,
+    never the inputs."""
     codes, cnt = sort_rows(codes, cnt, plain=plain)
-    cnt = rle_val_2d(codes, cnt)
+    cnt = rle_val_2d(codes, cnt, plain)
     return codes, cnt, torch.count_nonzero(cnt, dim=1)
 
 
@@ -132,7 +107,9 @@ def compact_raw(codes: torch.Tensor, count_dtype: torch.dtype = torch.int32):
 def compact_counted(codes: torch.Tensor, cnt: torch.Tensor):
     """The count-carrying compaction of one flat plane of (code, count)
     pairs -> (sorted codes, run totals at each run's end, distinct): the
-    reference's 1-D `compact_counted` (a row of `compact_counted_2d`)."""
+    reference's 1-D `compact_counted` (a row of `compact_counted_2d`).
+    The sort may run in place on `codes` and `cnt`, and the totals over
+    `cnt` (on the card): use the returned tensors, never the inputs."""
     codes, cnt, d = compact_counted_2d(codes.reshape(1, -1),
                                        cnt.reshape(1, -1))
     return codes.reshape(-1), cnt.reshape(-1), d[0]
