@@ -114,7 +114,9 @@ final ok-line is not printed.
      batch staged on the card, for each of the three (with the share of
      its windows that are valid)
   7. sparse main path: the same genome at k=21 --canonical and k=15
-     (C1 on every ingest, row sort K3, run-length encoding C2), each
+     --table-mode sparse (its file passes the sparse store's ceiling,
+     where `count` would take the dense table) (C1 on every ingest, row
+     sort K3, run-length encoding C2), each
      also run by the all-plain route (the plain row sort and run-length
      encoding, and the plain extraction through a tap on the name
      `counter.ingest` calls); every ingest of the kernel route must be a
@@ -123,6 +125,14 @@ final ok-line is not printed.
      route must launch none of the three, and the two outputs must hash
      equal (streamed sha256; each file is deleted once hashed).
      Prints bases/s and the CLI's phases, with the row sorts' device ms
+ 7b. dense main path past the sparse ceiling: the same genome at k=15
+     with default flags, so `count` takes the dense 4^15 table (C1 and
+     one scatter-add a batch, the table's nonzero bins compacted on the
+     card); also run with the plain chain in that step's place (the
+     plain extraction and the trash-bin scatter).  C1 must launch once a
+     batch on the first route and never on the plain one, K3, C2 and the
+     histograms never, and both outputs must hash equal to phase 7's k=15
+     output from the sparse store
   8. sparse device step: a staged k=21 --canonical batch: ingest ms (C1,
      and the plain extraction beside it, the two outputs equal),
      four compactions of the repeated batch at sparse_compact_entries =
@@ -445,7 +455,9 @@ RLE_CASES = ("runs", "distinct", "one_key", "sentinel")
 # operations outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-SPARSE_RUNS = ((21, ["--canonical"]), (15, []))
+# k=15 keeps the sparse store by its flag: the genome's file passes the
+# store's ceiling (cli.SPARSE_CEILING), where `count` takes the dense table
+SPARSE_RUNS = ((21, ["--canonical"]), (15, ["--table-mode", "sparse"]))
 # C1: k at the seams of its arithmetic (k = 15 / 16: int32 / int64 codes,
 # and k = 16 the narrow path with no shift; k = 17 the first of three
 # words; k >= 29 the shortest shifts of the 64-bit funnel)
@@ -1496,7 +1508,7 @@ def _sha256_and_delete(path: str) -> tuple:
 
 def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
     """The 256 Mbase genome through the CLI at k=21 --canonical and
-    k=15: C1 on every ingest, K3 on every row sort and C2 on every
+    k=15 --table-mode sparse: C1 on every ingest, K3 on every row sort and C2 on every
     run-length encoding, outputs equal to the all-plain route's (the
     plain row sort and run-length encoding, and the plain extraction by
     `_PlainExtraction`).  -> (K3 launches, of them on long rows, C1
@@ -1575,6 +1587,74 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 "tile (no dedup expected)")
     return (sort_rows_cuda.launches, sort_rows_cuda.long_launches,
             window_codes_packed_cuda.launches, rle_rows_cuda.launches, runs)
+
+
+class _PlainDenseStep:
+    """Sends the dense step above the histogram kernels' k to the plain
+    chain (`_dense_step`: the plain extraction and the trash-bin scatter)
+    in place of C1 and the scatter-add, by swapping the name that
+    `KmerCounter.step` calls."""
+
+    def __enter__(self):
+        self._orig = counter_mod._c1_scatter_step
+
+        def plain(table, batch, k, canonical, R):
+            return counter_mod._dense_step(table, batch, k, canonical,
+                                           table.numel(), "scatter", R)
+
+        counter_mod._c1_scatter_step = plain
+        return self
+
+    def __exit__(self, *exc):
+        counter_mod._c1_scatter_step = self._orig
+
+
+def phase_dense_main_path(tmp: str, fasta: str, sparse_runs: list) -> tuple:
+    """The 256 Mbase genome through the CLI at k=15 with default flags:
+    its file passes the sparse store's ceiling, so `count` takes the
+    dense 4^15 table.  C1 and the scatter-add, and the plain chain in
+    their place; both outputs equal to phase 7's k=15 output from the
+    sparse store.  -> (C1 launches, the runs)."""
+    if os.path.getsize(fasta) <= cli.SPARSE_CEILING:
+        raise AssertionError("the genome's file is under the sparse ceiling")
+    (want,) = [r["sha256"] for r in sparse_runs
+               if r["k"] == 15 and r["row_sort"] == "auto"]
+    others = (sort_rows_cuda, rle_rows_cuda, histogram_cuda,
+              fused_window_histogram_cuda)
+    others0 = [w.launches for w in others]
+    runs, launched = [], 0
+    for step in ("c1_scatter", "plain"):
+        out = os.path.join(tmp, f"dense_k15_{step}.tsv")
+        c1_0 = window_codes_packed_cuda.launches
+        with (_PlainDenseStep() if step == "plain"
+              else contextlib.nullcontext()):
+            stats, wall = run_cli(
+                ["count", "-i", fasta, "-k", "15", "--batch-rows", "1024",
+                 "--chunk-len", "65536", "--device", "cuda", "-o", out,
+                 "--stats", "json"])
+        c1 = window_codes_packed_cuda.launches - c1_0
+        if c1 != (stats["batches"] if step == "c1_scatter" else 0):
+            raise AssertionError(
+                f"dense k=15 {step}: {c1} C1 launches for "
+                f"{stats['batches']} batches")
+        digest, size = _sha256_and_delete(out)
+        if digest != want:
+            raise AssertionError(
+                f"dense k=15 {step}: the output differs from the sparse "
+                "store's at k=15")
+        run = {"k": 15, "step": step, "c1_launches": c1,
+               "batches": stats["batches"], "bases": stats["bases"],
+               "bases_per_s": stats["bases_per_s"],
+               "cli_wall_s": stats["wall_s"], "wall_s": wall,
+               "out_bytes": size, "sha256": digest,
+               "phases": stats["phases"]}
+        say("dense_main_path", **run)
+        runs.append(run)
+        launched += c1
+        torch.cuda.empty_cache()
+    if [w.launches for w in others] != others0:
+        raise AssertionError("the dense path launched K3, C2 or a histogram")
+    return launched, runs
 
 
 def phase_sparse_device_step(fasta: str) -> None:
@@ -3855,6 +3935,8 @@ def main() -> int:
                                                       args.profile)
         sort_launches, long_launches, c1_launches, c2_launches, \
             sparse_runs = phase_sparse_main_path(tmp, fasta)
+        dense_c1_launches, _ = phase_dense_main_path(tmp, fasta,
+                                                     sparse_runs)
         phase_sparse_device_step(fasta)
         dense8 = next(r for r in runs if r["k"] == 8 and not r["args"]
                       and r["route"] == "fused")
@@ -3986,7 +4068,7 @@ def main() -> int:
         # an XLA fusion in the JAX package (jit of the sparse ingest),
         # not a Pallas kernel
         "replaces": "findkmer_tpu/ops/window.py:201",
-        **launches_of(C1, c1_launches),
+        **launches_of(C1, c1_launches + dense_c1_launches),
         "max_abs_err": c1_err,
         "ms": c21["kernel"]["ms"],
         "plain_ms": c21["plain"]["ms"],

@@ -125,7 +125,10 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--log", default=None, help="log level (DEBUG/INFO/...)")
 
 
-def _cfg_from_args(args):
+def _cfg_from_args(args, dense_past_ceiling: bool = False):
+    """The Config of a counting subcommand's arguments, the sparse store
+    autosized (`_autosize_sparse`; `dense_past_ceiling` is its switch to
+    the dense table, for one combined spectrum)."""
     cfg = Config(
         k=args.k,
         canonical=args.canonical,
@@ -166,19 +169,34 @@ def _cfg_from_args(args):
     return _autosize_sparse(
         cfg, getattr(args, "input", []) or [],
         user_set_capacity=args.sparse_capacity != 1 << 22,
+        dense_past_ceiling=dense_past_ceiling,
     )
 
 
-def _autosize_sparse(cfg, inputs, user_set_capacity: bool):
+# Most distinct k-mers the autosized sparse store holds: the ceiling that
+# leaves device memory for the store and its compaction's working set.
+SPARSE_CEILING = 1 << 28
+
+
+def _autosize_sparse(cfg, inputs, user_set_capacity: bool,
+                     dense_past_ceiling: bool = False):
     """Size the sparse store and raw buffer from the input files.
 
     Auto-size the sparse store when the user left it at the default:
-    distinct k-mers <= windows <= input bytes; clamp to a ceiling that
-    leaves device memory for the store and its flush working set.
+    distinct k-mers <= windows <= input bytes; clamp to SPARSE_CEILING.
     Explicit --sparse-capacity always wins; a store overflow still
     errors with a clear message.  The raw code buffer is pre-sized from
     input size so the engine allocates once instead of growing through
-    the shape ladder."""
+    the shape ladder.
+
+    With `dense_past_ceiling` (`count` of one combined spectrum), where
+    the ceiling could be passed (both the input's bytes and 4^k over it)
+    and a dense table can hold every code (k <= 15), auto mode takes the
+    dense table instead: with the ceiling at 2^28 = 4^14 that is k = 15
+    over inputs of more than 2^28 bytes.  --table-mode, --sparse-capacity
+    and --spill keep the sparse store, and so does every count of one
+    spectrum a sample or a record (--per-input, --per-record, `matrix`),
+    `histo` and `stream`."""
     total_bytes = 0
     for path in inputs:
         if path == "-":
@@ -187,11 +205,20 @@ def _autosize_sparse(cfg, inputs, user_set_capacity: bool):
             raise FileNotFoundError(f"input file not found: {path}")
         total_bytes += os.path.getsize(path)
     if (
+        dense_past_ceiling
+        and cfg.table_mode == "auto"
+        and cfg.resolved_table_mode == "sparse"
+        and cfg.k <= 15
+        and not (user_set_capacity or cfg.spill_dir)
+        and min(total_bytes, 4 ** cfg.k) > SPARSE_CEILING
+    ):
+        return cfg.replace(table_mode="direct")
+    if (
         cfg.resolved_table_mode == "sparse"
         and not user_set_capacity
         and total_bytes > 0
     ):
-        need = min(total_bytes, min(4 ** cfg.k, 1 << 28))
+        need = min(total_bytes, 4 ** cfg.k, SPARSE_CEILING)
         cap = 1 << 20
         while cap < need:
             cap <<= 1
@@ -248,14 +275,23 @@ def _per_input_name(path: str, seen: dict) -> str:
 
 
 def _use_streamed_finalize(counter) -> bool:
-    """Sparse runs stream the write per finalize chunk
-    (counter.finalize_chunks: the ordered finalize, the spill merge, or a
-    mesh's dp_sparse k-way merge).
+    """Sparse runs, and a dense table above `Config.direct_k_max` on one
+    device, stream the write per finalize chunk (counter.finalize_chunks:
+    the ordered finalize, the spill merge, a mesh's dp_sparse k-way
+    merge, or the dense table's nonzero bins).
     FINDKMER_ORDERED_FINALIZE=0 turns this off too, so that the heap-merge
     finalize is reachable from the CLI."""
     if os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1":
         return False
-    return counter.mode != "direct"
+    if counter.mode != "direct":
+        return True
+    # a single card's dense table past the histogram kernels' k streams
+    # its nonzero bins, compacted on the device (--zeros needs them all)
+    from findkmer_torch.models.counter import KmerCounter
+
+    cfg = counter.cfg
+    return (isinstance(counter, KmerCounter) and cfg.k > cfg.direct_k_max
+            and not cfg.zeros)
 
 
 @contextlib.contextmanager
@@ -408,7 +444,8 @@ def cmd_count(args, row_sort: str = "auto",
                                            device_trace, span)
 
     _set_log_level(args.log)
-    cfg = _cfg_from_args(args)
+    cfg = _cfg_from_args(
+        args, dense_past_ceiling=not (args.per_input or args.per_record))
     if args.per_input and args.per_record:
         raise ValueError("--per-input and --per-record are exclusive")
     if cfg.spill_dir and (args.per_input or args.per_record):

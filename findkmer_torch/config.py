@@ -47,7 +47,10 @@ class Config:
     table_mode: str = AUTO           # direct | sparse | auto
     direct_k_max: int = 10           # largest k for a dense 4^k table in
     # auto mode: the histogram kernels cover k <= 10; above that auto
-    # routes to the sparse sort path.
+    # routes to the sparse sort path.  `count` of one combined spectrum
+    # takes the dense table above it too where both 4^k and the input's
+    # bytes pass the sparse store's ceiling (`cli.SPARSE_CEILING`,
+    # 2^28 = 4^14): at k = 15, a 4 GiB table of int32 counts.
     count_dtype: str = "int32"       # count dtype; exact (int32 overflows
                                      # only past 2^31 observations)
     sparse_capacity: int = 1 << 22   # max DISTINCT k-mers in the sparse

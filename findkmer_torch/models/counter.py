@@ -10,7 +10,11 @@ Dense (k <= Config.direct_k_max, or table_mode="direct"): one step per
 batch adds the histogram of the batch's valid windows into the table.
 The histogram is picked from `Config.hist` as in the JAX package:
   * auto:    the hand kernels ("pallas" below) when the counter's device
-             is CUDA and k <= 10, else scatter.
+             is CUDA and k <= 10; above k = 10 on CUDA ("c1_scatter"),
+             C1 (`ops/cuda/window_codes_kernel.py`) extracts the batch's
+             codes from the 2-bit wire and one `index_add_` adds them
+             into the table, an invalid window's sentinel slot adding 0
+             (uint8 rows take scatter); on the CPU scatter.
   * pallas:  the kernels' wrappers (the TPU package's name for its hand
              kernels); on a CPU device each wrapper runs its plain version.
              `dense_kernel` picks which:
@@ -55,6 +59,10 @@ package's log-structured store.
     live entries (the sum of the host distinct vector it reads anyway)
     to `store_live` and its G x cols slots to `store_slots`.  The finalize's spans are `finalize/<part>`, the
     chunks' host copies and their concatenation `finalize/assemble`.
+    Every pull of spectrum entries to the host adds them to
+    `entries_pulled`: a sparse chunk's length; the dense table's 4^k
+    bins in `finalize`, its nonzero bins in `finalize_chunks` (each
+    slice's compaction and pull the span `finalize/table`).
 Codes are one integer (int32 for k <= 15, int64 above; `ops/window.py`).
 Counting over several devices is `parallel/dist.py`'s, behind the same
 interface (`make_counter`).
@@ -97,6 +105,9 @@ ROW_SORTS = ("auto", "kernel", "plain")
 DENSE_KERNELS = ("fused", "two_stage")
 # finalize chunk size: entries pulled to the host per pinned copy
 FINALIZE_CHUNK = 1 << 22
+# dense table bins compacted to their nonzero entries at once by the
+# chunked dense finalize (its device memory on top of the table)
+TABLE_SLICE = 1 << 24
 
 
 def _dense_step(
@@ -118,6 +129,19 @@ def _kernel_dense_step(
 ) -> torch.Tensor:
     rows = window_ops.rows_from_batch(batch, R)
     return add_counts_cuda(rows, table, k, canonical)
+
+
+def _c1_scatter_step(
+    table: torch.Tensor, batch, k: int, canonical: bool, R: int
+) -> torch.Tensor:
+    """The dense step above the histogram kernels' k on a card: C1's
+    codes of a packed batch, added into the table by one `index_add_`.
+    C1's sentinel slot adds 0 at its code masked to the table (a real
+    code is below 4^k), so it is never counted."""
+    codes = window_codes_packed_cuda(batch[0], batch[1], k, canonical, R=R)
+    valid = codes != window_ops.sentinel(codes.dtype)
+    table.index_add_(0, codes & (table.numel() - 1), valid.to(table.dtype))
+    return table
 
 
 def batch_slots(batch, k: int, R: int) -> int:
@@ -235,11 +259,10 @@ class KmerCounter(RowStoreMixin):
                     f"the histogram kernel needs k <= {MAX_K} (got k={cfg.k})"
                 )
         elif m == "auto":
-            m = (
-                "pallas"
-                if self.device.type == "cuda" and cfg.k <= MAX_K
-                else "scatter"
-            )
+            if self.device.type != "cuda":
+                m = "scatter"
+            else:
+                m = "pallas" if cfg.k <= MAX_K else "c1_scatter"
         return m
 
     def _dedup_geometry(self):
@@ -308,10 +331,18 @@ class KmerCounter(RowStoreMixin):
                 _kernel_dense_step(
                     state.counts, batch, cfg.k, cfg.canonical, cfg.row_len
                 )
+            elif (self._method == "c1_scatter"
+                  and isinstance(batch, (tuple, list))):
+                _c1_scatter_step(
+                    state.counts, batch, cfg.k, cfg.canonical, cfg.row_len
+                )
             else:
+                # uint8 rows take the plain chain: C1 reads the 2-bit wire
                 _dense_step(
                     state.counts, batch, cfg.k, cfg.canonical,
-                    cfg.table_size, self._method, cfg.row_len,
+                    cfg.table_size,
+                    "scatter" if self._method == "c1_scatter"
+                    else self._method, cfg.row_len,
                 )
             return state
 
@@ -426,6 +457,7 @@ class KmerCounter(RowStoreMixin):
         holes and merge the G rows in one C pass."""
         with ph("finalize/d2h"):
             codes, cnt = (a.cpu().numpy() for a in store)
+        prof.count("entries_pulled", codes.size)
         with ph("finalize/merge"):
             return sparse_ops.store_to_host_2d(codes, cnt)
 
@@ -438,7 +470,11 @@ class KmerCounter(RowStoreMixin):
         finalize, or the spill merge).  FINDKMER_ORDERED_FINALIZE=0 takes
         the heap-merge finalize of an unspilled store instead."""
         if self.mode == "direct":
-            return state.to_host()
+            # the tracer's alone: `stream --stats json` keeps its phases
+            with prof.span("finalize/table"):
+                counts = state.to_host()
+            prof.count("entries_pulled", counts.size)
+            return counts
         ph = phases(timers)
         # compact FIRST: the finalize's own compaction may write the first
         # spill run, and only then is `_spill_n` the route's truth
@@ -492,9 +528,10 @@ class KmerCounter(RowStoreMixin):
         yield from _pull_chunks(codes, counts, ph)
 
     def finalize_chunks(self, state, timers=None):
-        """The sparse spectrum as host chunks (codes uint64, counts int64)
-        in globally sorted distinct order; they concatenate to
-        finalize(state).
+        """The spectrum as host chunks (codes uint64, counts int64) in
+        code order, zero counts left out; a sparse store's concatenate
+        to finalize(state).  A dense table is compacted to its nonzero
+        bins on its device, slice by slice (`_table_chunks`).
 
         A chunk's arrays may live in a reused pinned buffer: they are
         valid until the next chunk is requested (copy them to keep them).
@@ -502,7 +539,8 @@ class KmerCounter(RowStoreMixin):
         chunk ahead, so it runs while the caller formats the chunk
         before."""
         if self.mode == "direct":
-            raise ValueError("finalize_chunks is for sparse tables")
+            yield from _table_chunks(state.counts)
+            return
         ph = phases(timers)
         state, _ = self._compacted(state, ph)
         yield from self._sorted_chunks(state, ph)
@@ -607,11 +645,29 @@ def _chunk_spans(n: int):
     return [(a, min(a + step, n)) for a in range(0, n, step)]
 
 
+def _table_chunks(table: torch.Tensor):
+    """Host (codes uint64, counts int64) chunks of a dense table's
+    nonzero bins in code order.  Each slice of TABLE_SLICE bins is
+    compacted on the table's device and only its nonzero bins are
+    pulled; the compaction and the pull are `finalize/table` spans (the
+    tracer's alone: `stream --stats json` keeps its phases)."""
+    def table_span(_name):
+        return prof.span("finalize/table")
+
+    for a in range(0, table.numel(), TABLE_SLICE):
+        part = table[a:a + TABLE_SLICE]
+        with table_span(None):
+            idx = part.nonzero().squeeze(1)
+            codes, counts = idx + a, part[idx]
+        yield from _pull_chunks(codes, counts, table_span)
+
+
 def _pull_chunks(codes: torch.Tensor, counts: torch.Tensor, ph):
     """Yield host (codes uint64, counts int64) chunks of a device
     spectrum.  CUDA: two pinned buffer pairs alternate; chunk i+1's copy
     is issued before chunk i is handed to the caller."""
     spans = _chunk_spans(codes.shape[0])
+    prof.count("entries_pulled", codes.shape[0])
     if codes.device.type != "cuda":
         for a, b in spans:
             with ph("finalize/d2h"):

@@ -8,8 +8,10 @@ and the separator are Config fields.
 Decoding is vectorized: codes are expanded to an (n, k) base matrix with k
 shifts, viewed as fixed-width byte strings, and joined in bounded-size
 chunks; where the C library builds, `io.native.format_spectrum` formats a
-chunk in one pass.  Spans (`utils.prof`): `write/format` is each chunk's
-formatting, `write/io` each write of formatted bytes.
+chunk in one pass.  Spans (`utils.prof`): `write/threshold` is each
+application of the count thresholds, `write/format` each chunk's
+formatting, `write/io` each write of formatted bytes; the counter
+`entries_written` adds the lines each chunk formats.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import IO, Iterator
 import numpy as np
 
 from findkmer_torch.config import Config
-from findkmer_torch.utils.prof import span
+from findkmer_torch.utils.prof import count, span
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -57,6 +59,7 @@ def _format_chunk(
     codes: np.ndarray, counts: np.ndarray, k: int, sep: bytes,
     counts_only: bool,
 ) -> bytes:
+    count("entries_written", counts.shape[0])
     with span("write/format"):
         if not counts_only and len(sep) == 1:
             # one-pass C formatter (~10x the numpy string assembly)
@@ -106,7 +109,8 @@ def spectrum_chunks(
     """
     sep = cfg.sep.encode()
     k = cfg.k
-    spectrum = _apply_count_thresholds(spectrum, cfg)
+    with span("write/threshold"):
+        spectrum = _apply_count_thresholds(spectrum, cfg)
     if isinstance(spectrum, tuple):
         codes, counts = spectrum
         if cfg.zeros:
@@ -166,7 +170,8 @@ def write_spectrum_streaming(f: IO[bytes], chunk_iter, cfg: Config) -> int:
     n = 0
     block = 1 << 20
     for chunk in chunk_iter:
-        codes, counts = _apply_count_thresholds(chunk, cfg)
+        with span("write/threshold"):
+            codes, counts = _apply_count_thresholds(chunk, cfg)
         for s in range(0, codes.shape[0], block):
             e = min(s + block, codes.shape[0])
             b = _format_chunk(

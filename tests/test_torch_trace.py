@@ -215,8 +215,10 @@ def test_each_path_records_the_layers_and_their_sub_spans(cmd, ecoli,
         for s in spans:
             if s.name in LAYERS:
                 assert _inside(s, samples, "sample"), s
+    # histo formats no spectrum lines
     assert {c.name for c in counts} == {
-        "raw_slots_sorted", "raw_slots_filled", "store_live", "store_slots"}
+        "raw_slots_sorted", "raw_slots_filled", "store_live", "store_slots",
+        "entries_pulled"} | ({"entries_written"} if cmd != "histo" else set())
 
 
 @pytest.mark.parametrize("cmd", sorted(SUBS))
