@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check, drive.
 
     python3 chip_smoke.py [--seed N] [--profile]
-                          [--only rowsort|window|stream|filter|tools|mesh|
-                                  spill|installed|bench]
+                          [--only rowsort|rle|histo|window|stream|filter|
+                                  tools|mesh|spill|installed|bench]
                           [--against DIR]
 
 Run from the root of a checkout, on a machine with a CUDA card (Hopper,
@@ -103,6 +103,20 @@ final ok-line is not printed.
      dedup's (1, 2^29) + int32 counts), beside the bound (keys read once,
      counts read once, totals written once at 3.35 TB/s), on the
      `rle_timing` line
+ 5c. C3 (`histo`'s count-of-counts) vs `count_histo_reference` on the
+     card, bit for bit: int32 and int64 counts of every length at a seam
+     of the kernel (0 to 5, a warp's and a block's vectors, 2^20 + 3),
+     from an aligned address and one count off it; every entry seen
+     once, every entry in one bin, a read set's spectrum (70% ones, the
+     rest Poisson(40), 5% zeros) and counts past the clip (and the
+     dtype's largest); --max-count 1, 3, 10000 and one past the shared
+     bins' reach (global bins); then `k21c.reads_histo`'s spectrum,
+     57,792,129 counts, int32 and int64 at 10000 and 1,000,000.  One
+     launch a non-empty input, none an empty one, h[0] 0, the input
+     untouched.  Then the median CUDA-event ms of the wrapper and of the
+     plain version, in turn, at the cell's spectrum (int32 and int64 at
+     10000, int32 at 1,000,000), beside the bound (counts read once,
+     bins written once at 3.35 TB/s), on the `count_histo_timing` line
   6. dense main path: a seeded 256 Mbase multi-record FASTA (N runs,
      lowercase, IUPAC codes, poly-A runs) counted by `findkmer_torch.cli
      count` at --batch-rows 1024 on cuda for k=8, k=8 --canonical and
@@ -130,8 +144,8 @@ final ok-line is not printed.
      one scatter-add a batch, the table's nonzero bins compacted on the
      card); also run with the plain chain in that step's place (the
      plain extraction and the trash-bin scatter).  C1 must launch once a
-     batch on the first route and never on the plain one, K3, C2 and the
-     histograms never, and both outputs must hash equal to phase 7's k=15
+     batch on the first route and never on the plain one, K3, C2, C3 and
+     the histograms never, and both outputs must hash equal to phase 7's k=15
      output from the sparse store
   8. sparse device step: a staged k=21 --canonical batch: ingest ms (C1,
      and the plain extraction beside it, the two outputs equal),
@@ -219,7 +233,9 @@ final ok-line is not printed.
      `expr` results `merge`, `intersect`, `subtract --mode counters` and
      `--mode kmers`; `info` reads a sorted canonical k=21 spectrum,
      `query` answers each k-mer, `diff` exits 1.  Every row sort of the
-     phase is a K3 launch, K2 launches in the two k=8 runs alone, K1 never
+     phase is a K3 launch, K2 launches in the two k=8 runs alone, K1 never,
+     C3 once in each recounting `histo` (its count-of-counts on the card)
+     and in no other run
  14. counting over a mesh of shards (`findkmer_torch/parallel/`), every
      shard on card 0: the dry run (`parallel/dryrun.py`) over meshes of 2
      and 4 shards on a seeded genome of 64,000,000 bases, two batches
@@ -302,7 +318,8 @@ wall time the device was busy.
 With --only rowsort the script runs phases 1, 2 and 5 (and first prints
 what `nvcc -Xptxas -v` says of the row sort's registers and spills, and
 the instructions of its production kernels by opcode); with --only rle
-phases 1, 2 and 5b (with `ptxas -v` of rle.cu); with --only window
+phases 1, 2 and 5b (with `ptxas -v` of rle.cu); with --only histo
+phases 1, 2 and 5c (with `ptxas -v` of count_histo.cu); with --only window
 phases 1 to 4 (with the same of histogram.cu and window_histogram.cu)
 and phase 4b (with `ptxas -v` of window_codes.cu): the quick check of
 an edit to those kernels; with --only stream phases
@@ -315,11 +332,11 @@ DIR] phases 1 and 2, then phase 11's `count --spill` as a process of its
 own from this checkout and from DIR (another checkout
 of the port, such as the parent commit unpacked into build/), in turn,
 with each run's wall, dispatch seconds and peak device memory, the
-outputs sha256-equal.  Each of the nine prints no summary and no
+outputs sha256-equal.  Each of the ten prints no summary and no
 ok-line.
 
 The line before the last is a JSON summary of the kernels K1, K2, K3,
-C1 and C2 (for each its launches on the main paths: the `count` runs, each
+C1, C2 and C3 (for each its launches on the main paths: the `count` runs, each
 run that phase 11 makes in this process, the `--per-record` runs on the
 card of phase 10, the filter runs of phase 12 (C1 alone), the runs on the
 card of phase 13, the mesh runs of phase 14, the installed package's runs
@@ -362,6 +379,11 @@ from findkmer_torch.ops import histogram as hist_ops
 from findkmer_torch.ops import sparse as sparse_ops
 from findkmer_torch.ops import window as window_ops
 from findkmer_torch.ops.cuda import _build
+from findkmer_torch.ops.cuda.count_histo_kernel import (
+    count_histo_cuda,
+    count_histo_reference,
+    shared_max_count,
+)
 from findkmer_torch.ops.cuda.histogram_kernel import (
     SHARED_MAX_K,
     histogram_cuda,
@@ -451,6 +473,15 @@ RLE_SHAPES = (
 RLE_SEAMS = (1, 2, 3, 5, 255, 256, 511, 512, 513, 767, 768, 1024, 1500,
              2048, 4095, 4096, 4097, 8193, (1 << 16) + 3)
 RLE_CASES = ("runs", "distinct", "one_key", "sentinel")
+# C3 checked at lengths at its seams (a 16-byte vector of 4 or 2 counts, a
+# warp's and a block's vectors) and past them, for each case of spectrum
+C3_LENGTHS = (0, 1, 2, 3, 4, 5, 31, 32, 33, 1023, 1025, 2047, 2049, 8193,
+              (1 << 20) + 3)
+C3_CASES = ("ones", "one_bin", "reads", "past_clip")
+# `k21c.reads_histo`'s spectrum: the distinct canonical 21-mers of a job
+# (`histo_on_card` on the card), binned at the cell's --max-count
+C3_CELL_N = 57_792_129
+C3_CELL_MAX = 10000
 # the card's published peaks (H100 SXM): device memory, and 32-bit
 # operations outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1399,6 +1430,104 @@ def phase_rle_timing(seed: int) -> dict:
     return timing
 
 
+def _c3_input(n: int, dt, case: str, max_count: int,
+              gen: torch.Generator) -> torch.Tensor:
+    """Counts of a spectrum on the card: `ones` every entry seen once,
+    `one_bin` every entry 40 times, `reads` a read set's (70% ones, the
+    rest Poisson(40), 5% holes of 0), `past_clip` uniform up to three
+    times max_count with every 97th entry the dtype's largest."""
+    dev = torch.device("cuda")
+    if case == "ones":
+        return torch.ones(n, dtype=dt, device=dev)
+    if case == "one_bin":
+        return torch.full((n,), 40, dtype=dt, device=dev)
+    if case == "reads":
+        u = torch.rand(n, generator=gen, device=dev)
+        cov = torch.poisson(torch.full((n,), 40.0, device=dev),
+                            generator=gen).to(dt)
+        c = torch.where(u < 0.7, torch.ones_like(cov), cov)
+        return c.masked_fill_(u > 0.95, 0)
+    c = torch.randint(0, 3 * max_count + 3, (n,), generator=gen,
+                      device=dev, dtype=dt)
+    c[::97] = torch.iinfo(dt).max
+    return c
+
+
+def phase_count_histo_vs_plain(seed: int) -> int:
+    """C3 vs its plain version on the card, bit for bit (`torch.equal`),
+    int32 and int64 counts, every case at every length of C3_LENGTHS,
+    from an aligned address and one slot off it, at --max-count 1, 3,
+    the default and one past the shared bins' reach (global bins); then
+    the cell's spectrum, int32 and int64 at the default and at 1,000,000.
+    One launch a non-empty input, none for an empty one; the input
+    untouched."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    top = shared_max_count(torch.cuda.current_device())
+    combos = [(n, dt, case, m) for dt in (torch.int32, torch.int64)
+              for m in (1, 3, C3_CELL_MAX, top + 1) for n in C3_LENGTHS
+              for case in C3_CASES]
+    combos += [(C3_CELL_N, dt, "reads", m)
+               for dt in (torch.int32, torch.int64)
+               for m in (C3_CELL_MAX, 1_000_000)]
+    n_cases = 0
+    launches0 = count_histo_cuda.launches
+    for n, dt, case, m in combos:
+        full = _c3_input(n, dt, case, m, gen)
+        for counts in ((full, full[1:]) if n > 1 else (full,)):
+            keep = counts.clone()
+            before = count_histo_cuda.launches
+            got = count_histo_cuda(counts, m)
+            want = count_histo_reference(counts, m)
+            torch.cuda.synchronize()
+            what = (f"C3 != plain at {counts.numel()} {dt} case={case} "
+                    f"max_count={m} offset={full.numel() - counts.numel()}")
+            if (got.dtype != torch.int64 or got.shape != (m + 1,)
+                    or not torch.equal(got, want) or int(got[0])):
+                raise AssertionError(what)
+            if count_histo_cuda.launches - before != int(counts.numel() > 0):
+                raise AssertionError(f"{what}: launches")
+            if not torch.equal(counts, keep):
+                raise AssertionError(f"{what}: the counts moved")
+            n_cases += 1
+        del full, got, want, keep
+    torch.cuda.empty_cache()
+    say("count_histo_vs_plain", cases=n_cases, max_abs_err=0,
+        shared_max_count=top, launches=count_histo_cuda.launches - launches0)
+    return 0
+
+
+def phase_count_histo_timing(seed: int) -> dict:
+    """Median CUDA-event ms of C3 (the wrapper: its zeroed bins and one
+    launch) and of its plain version at the cell's spectrum, timed in
+    turn: int32 and int64 counts at the default --max-count (shared
+    bins), and int32 at 1,000,000 (global bins).  The bound: counts read
+    once, bins written once."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    timing = {}
+    for name, dt, m in (("cell_int32", torch.int32, C3_CELL_MAX),
+                        ("cell_int64", torch.int64, C3_CELL_MAX),
+                        ("cell_int32_global", torch.int32, 1_000_000)):
+        counts = _c3_input(C3_CELL_N, dt, "reads", m, gen)
+        kernel = _time_alternating(
+            {"kernel": lambda: count_histo_cuda(counts, m)})["kernel"]
+        plain = [_median_ms(lambda: count_histo_reference(counts, m))
+                 for _ in range(2)]
+        bound = _bound(counts.nbytes + (m + 1) * 8, 0)
+        timing[name] = {"shape": [C3_CELL_N], "counts": str(dt),
+                        "max_count": m,
+                        "bins": ("shared" if m <= shared_max_count(
+                            torch.cuda.current_device()) else "global"),
+                        "kernel": kernel,
+                        "plain": {"ms": statistics.median(plain),
+                                  "runs": plain},
+                        "library_ms": None, **bound,
+                        "share_of_bound": bound["bound_ms"] / kernel["ms"]}
+        del counts
+        torch.cuda.empty_cache()
+    say("count_histo_timing", timing=timing)
+    return timing
+
+
 class _LongRows:
     """A wrapper's launches on rows longer than a tile (`long_launches`:
     K3's merge passes, C2's look-back across rows) as a counter with
@@ -1424,9 +1553,11 @@ WRAPPERS = {"histogram_cuda": histogram_cuda,
             "sort_rows_cuda_long": _LongRows(sort_rows_cuda),
             "window_codes_packed_cuda": window_codes_packed_cuda,
             "rle_rows_cuda": rle_rows_cuda,
-            "rle_rows_cuda_long": _LongRows(rle_rows_cuda)}
+            "rle_rows_cuda_long": _LongRows(rle_rows_cuda),
+            "count_histo_cuda": count_histo_cuda}
 C1 = "window_codes_packed_cuda"
 C2 = "rle_rows_cuda"
+C3 = "count_histo_cuda"
 
 
 class _PlainExtraction:
@@ -1523,6 +1654,7 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
         histogram_cuda.launches = 0
         fused_window_histogram_cuda.launches = 0
         window_codes_packed_cuda.launches = 0
+        count_histo_cuda.launches = 0
         for k, extra in SPARSE_RUNS:
             digests = {}
             for row_sort in ("auto", "plain"):
@@ -1578,8 +1710,10 @@ def phase_sparse_main_path(tmp: str, fasta: str) -> tuple:
                 )
             say("sparse_main_path_identical", k=k, args=extra,
                 sha256=digests["auto"])
-        if histogram_cuda.launches or fused_window_histogram_cuda.launches:
-            raise AssertionError("the sparse path launched a histogram")
+        if (histogram_cuda.launches or fused_window_histogram_cuda.launches
+                or count_histo_cuda.launches):
+            raise AssertionError("the sparse path launched a histogram or "
+                                 "C3")
         if sort_rows_cuda.long_launches or rle_rows_cuda.long_launches:
             raise AssertionError(
                 f"a plain count sorted {sort_rows_cuda.long_launches} and "
@@ -1620,7 +1754,7 @@ def phase_dense_main_path(tmp: str, fasta: str, sparse_runs: list) -> tuple:
     (want,) = [r["sha256"] for r in sparse_runs
                if r["k"] == 15 and r["row_sort"] == "auto"]
     others = (sort_rows_cuda, rle_rows_cuda, histogram_cuda,
-              fused_window_histogram_cuda)
+              fused_window_histogram_cuda, count_histo_cuda)
     others0 = [w.launches for w in others]
     runs, launched = [], 0
     for step in ("c1_scatter", "plain"):
@@ -1653,7 +1787,8 @@ def phase_dense_main_path(tmp: str, fasta: str, sparse_runs: list) -> tuple:
         launched += c1
         torch.cuda.empty_cache()
     if [w.launches for w in others] != others0:
-        raise AssertionError("the dense path launched K3, C2 or a histogram")
+        raise AssertionError("the dense path launched K3, C2, C3 or a "
+                             "histogram")
     return launched, runs
 
 
@@ -1927,7 +2062,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
             or launched["fused_window_histogram_cuda"]
             or launched[C1] != full["batches"]
             or not 0 < launched[C2] <= k3
-            or launched["rle_rows_cuda_long"]):
+            or launched["rle_rows_cuda_long"] or launched[C3]):
         raise AssertionError(
             f"sparse stream: launches {launched} for {sorts.calls} row "
             f"sorts ({SPARSE_STREAM_SORTS} expected), {full['batches']} "
@@ -1989,7 +2124,7 @@ def phase_stream(tmp: str, seed: int) -> dict:
     if (launched["sort_rows_cuda"] != sorts.calls
             or not launched["sort_rows_cuda_long"]
             or not launched["rle_rows_cuda_long"]
-            or launched[C1] != stats["batches"]):
+            or launched[C1] != stats["batches"] or launched[C3]):
         raise AssertionError(
             f"count --spill: launches {launched} for {sorts.calls} row sorts "
             f"and {stats['batches']} batches")
@@ -2048,7 +2183,8 @@ def phase_stream(tmp: str, seed: int) -> dict:
     finally:
         del os.environ["FINDKMER_ORDERED_FINALIZE"]
     os.unlink(fasta)
-    if not sorts.calls or launched["sort_rows_cuda"] != sorts.calls:
+    if (not sorts.calls or launched["sort_rows_cuda"] != sorts.calls
+            or launched[C3]):
         raise AssertionError(
             f"heap-merge count: launches {launched} for {sorts.calls} row "
             "sorts")
@@ -2064,7 +2200,10 @@ def phase_stream(tmp: str, seed: int) -> dict:
         cli_wall_s=stats["wall_s"], out_bytes=size, sha256=digest,
         identical_to_count=True)
     torch.cuda.empty_cache()
-    if not all(sum(runs.values()) for runs in by_run.values()):
+    # every kernel ran in some run of the phase but C3, which only
+    # `histo`'s recount launches (each run above checks it launched none)
+    if not all(sum(runs.values()) for name, runs in by_run.items()
+               if name != C3):
         raise AssertionError(f"stream phase: a kernel never ran: {by_run}")
     say("stream_launches", **by_run)
     return by_run
@@ -2311,6 +2450,7 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
     sort_rows_cuda.launches = 0
     window_codes_packed_cuda.launches = 0
     rle_rows_cuda.launches = 0
+    count_histo_cuda.launches = 0
     for k, extra in ((8, []), (8, ["--canonical"]), (10, [])):
         want_bytes = None
         # each route once (the mirrored second pass went when the stream
@@ -2354,9 +2494,9 @@ def phase_main_path(fasta: str, tmp: str, profile: bool) -> tuple:
             bytes=len(want_bytes),
             sha256=hashlib.sha256(want_bytes).hexdigest())
     if (sort_rows_cuda.launches or window_codes_packed_cuda.launches
-            or rle_rows_cuda.launches):
-        raise AssertionError("the dense path launched the row sort, C1 or "
-                             "C2")
+            or rle_rows_cuda.launches or count_histo_cuda.launches):
+        raise AssertionError("the dense path launched the row sort, C1, C2 "
+                             "or C3")
     return (histogram_cuda.launches, fused_window_histogram_cuda.launches,
             runs)
 
@@ -2382,6 +2522,7 @@ import findkmer_torch
 from findkmer_torch import cli, pipeline
 from findkmer_torch.io import native
 from findkmer_torch.ops.cuda import _build
+from findkmer_torch.ops.cuda.count_histo_kernel import count_histo_cuda
 from findkmer_torch.ops.cuda.histogram_kernel import histogram_cuda
 from findkmer_torch.ops.cuda.rle_kernel import rle_rows_cuda
 from findkmer_torch.ops.cuda.rowsort_kernel import sort_rows_cuda
@@ -2408,7 +2549,7 @@ for name, flags in runs:
     histogram_cuda.launches = fused_window_histogram_cuda.launches = 0
     sort_rows_cuda.launches = sort_rows_cuda.long_launches = 0
     rle_rows_cuda.launches = rle_rows_cuda.long_launches = 0
-    window_codes_packed_cuda.launches = 0
+    window_codes_packed_cuda.launches = count_histo_cuda.launches = 0
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
@@ -2427,7 +2568,8 @@ for name, flags in runs:
             "sort_rows_cuda_long": sort_rows_cuda.long_launches,
             "window_codes_packed_cuda": window_codes_packed_cuda.launches,
             "rle_rows_cuda": rle_rows_cuda.launches,
-            "rle_rows_cuda_long": rle_rows_cuda.long_launches}}
+            "rle_rows_cuda_long": rle_rows_cuda.long_launches,
+            "count_histo_cuda": count_histo_cuda.launches}}
 report["jax_package"] = "findkmer_tpu" in sys.modules
 print(json.dumps(report))
 """
@@ -2643,7 +2785,7 @@ def phase_entry_points(tmp: str, seed: int) -> dict:
                 c1_launches=launched[C1], out_bytes=len(got[dev]))
             # C1 on every sparse batch on the card; nothing on the CPU
             if (launched[C1] > 0) != (dev == "cuda" and k > 10) or (
-                    dev == "cpu" and any(launched.values())):
+                    dev == "cpu" and any(launched.values())) or launched[C3]:
                 raise AssertionError(
                     f"--per-record k={k} on {dev}: launches {launched}")
         if (got["cuda"] != got["cpu"]
@@ -3100,11 +3242,15 @@ def phase_tools(tmp: str, seed: int) -> dict:
         "expr_kmers.tsv", "sorted1.tsv", "skspec")}
     os.makedirs(o["skspec"])
     counting = []
+    c3_by_run = {}
 
     def on_card(name: str, argv: list, n_bases: int) -> tuple:
+        c3_0 = count_histo_cuda.launches
         stats, wall = run_cli(argv + ["--device", "cuda"])
+        c3_by_run[name] = count_histo_cuda.launches - c3_0
         run = {"run": name, "bases": n_bases, "wall_s": wall,
-               "bases_per_s": n_bases / wall}
+               "bases_per_s": n_bases / wall,
+               "c3_launches": c3_by_run[name]}
         say("tools_count", **run)
         counting.append(run)
         return stats, wall
@@ -3290,6 +3436,10 @@ def phase_tools(tmp: str, seed: int) -> dict:
             and launched["fused_window_histogram_cuda"] == k2),
         "C1 and C2 on the k=21 counts": (launched[C1] > 0
                                          and launched[C2] > 0),
+        "C3 once a recounting histo, in no other run": (
+            c3_by_run == {name: int(name.startswith("histo_"))
+                          for name in c3_by_run}
+            and launched[C3] == 2),
     }
     failed = [c for c, ok in checks.items() if not ok]
     say("tools_checks", passed=len(checks) - len(failed), failed=failed,
@@ -3477,7 +3627,7 @@ def phase_mesh(tmp: str, seed: int) -> dict:
     if (launched["fused_window_histogram_cuda"] == 0 or sorts == 0
             or launched["sort_rows_cuda"] != sorts
             or not launched["sort_rows_cuda_long"] or not launched[C1]
-            or not launched[C2]):
+            or not launched[C2] or launched[C3]):
         raise AssertionError(f"mesh phase: launches {launched} for {sorts} "
                              "row sorts")
     say("mesh_launches", **launched, row_sorts=sorts)
@@ -3628,7 +3778,8 @@ def phase_bench() -> dict:
                 "k", "batch_rows", "chunk_len", "steps", "canonical")}
         # K2 once a step (dense), C1 on every ingest, K3 on every row
         # sort and C2 on every compaction (sparse), K1 never
-        if (k2 != want_k2 or launched["histogram_cuda"] or k3 != sorts
+        if (k2 != want_k2 or launched["histogram_cuda"] or launched[C3]
+                or k3 != sorts
                 or (line["k"] > 10) != (k3 > 0)
                 or (line["k"] > 10) != (c1 > 0)
                 or (line["k"] > 10) != (c2 > 0)):
@@ -3773,11 +3924,12 @@ def phase_bench_driver(smi: str) -> dict:
         raise AssertionError(f"bench driver: staged runs {kinds}")
     # K2 once a dense step (and its warm-up), C1 once an ingest of each of
     # a sparse call's two runs, K3 and C2 once a compaction (one a run),
-    # K1 and long rows never
+    # K1, C3 and long rows never
     want = {"histogram_cuda": 0, "sort_rows_cuda_long": 0,
             "fused_window_histogram_cuda": bench.runs[0][1]["steps"] + 1,
             C1: sum(2 * kw["steps"] for _, kw, *_ in bench.runs[1:]),
-            "sort_rows_cuda": 2 * 4, C2: 2 * 4, "rle_rows_cuda_long": 0}
+            "sort_rows_cuda": 2 * 4, C2: 2 * 4, "rle_rows_cuda_long": 0,
+            C3: 0}
     if launched != want or sorts != want["sort_rows_cuda"]:
         raise AssertionError(f"bench driver: launches {launched} for {sorts}"
                              f" row sorts, {want} expected")
@@ -3849,11 +4001,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time the FASTA reader alone and profile the "
                          "device step by kernel")
-    ap.add_argument("--only", choices=["rowsort", "rle", "window",
+    ap.add_argument("--only", choices=["rowsort", "rle", "histo", "window",
                                        "stream", "filter", "tools", "mesh",
                                        "spill", "installed", "bench"],
                     help="run only the row sort's phases (K3), only the "
                          "run-length encoding's (C2), only the "
+                         "count-of-counts' (C3), only the "
                          "window kernels' (K1, K2 and C1), only the "
                          "restartable stream's, only read filtering's, "
                          "only the spectrum tools', only the mesh's, only "
@@ -3880,6 +4033,11 @@ def main() -> int:
         phase_ptxas("rle.cu")
         phase_rle_vs_plain(args.seed)
         phase_rle_timing(args.seed)
+        return 0
+    if args.only == "histo":
+        phase_ptxas("count_histo.cu")
+        phase_count_histo_vs_plain(args.seed)
+        phase_count_histo_timing(args.seed)
         return 0
     if args.only == "stream":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3929,6 +4087,8 @@ def main() -> int:
     sort_timing = phase_rowsort_timing(args.seed)
     rle_err = phase_rle_vs_plain(args.seed)
     rle_timing = phase_rle_timing(args.seed)
+    c3_err = phase_count_histo_vs_plain(args.seed)
+    c3_timing = phase_count_histo_timing(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fasta = phase_genome(tmp, args.seed)
         launches, k2_launches, runs = phase_main_path(fasta, tmp,
@@ -3947,13 +4107,14 @@ def main() -> int:
                 "histogram_cuda": dense8["k1_launches"],
                 "fused_window_histogram_cuda": dense8["k2_launches"],
                 "sort_rows_cuda": 0, "sort_rows_cuda_long": 0, C1: 0,
-                C2: 0, "rle_rows_cuda_long": 0}},
+                C2: 0, "rle_rows_cuda_long": 0, C3: 0}},
             "k21_canonical": {"sha256": sparse21["sha256"], "launches": {
                 "histogram_cuda": 0, "fused_window_histogram_cuda": 0,
                 "sort_rows_cuda": sparse21["launches"],
                 "sort_rows_cuda_long": 0,
                 C1: sparse21["c1_launches"],
-                C2: sparse21["c2_launches"], "rle_rows_cuda_long": 0}}},
+                C2: sparse21["c2_launches"], "rle_rows_cuda_long": 0,
+                C3: 0}}},
             smi)
         os.unlink(fasta)
         phase_oracle(tmp)
@@ -3965,6 +4126,7 @@ def main() -> int:
     bench_launches = phase_bench()
     driver_launches = phase_bench_driver(smi)
     t8 = timing[f"k8_valid{TIMED_VALID[-1]}"]
+    c3_cell = c3_timing["cell_int32"]
     w8 = k2_timing["k8"]
     raw21 = sort_timing["raw_k21"]
     c21 = c1_timing["prod_k21_canonical"]
@@ -4111,6 +4273,31 @@ def main() -> int:
                             "plain_ms": t["plain"]["ms"], **bound_of(t),
                             "share_of_bound": t["share_of_bound"]}
                      for name, t in rle_timing.items()},
+        "card": smi,
+    }, {
+        "name": C3,
+        "route": "cuda",
+        "source": "findkmer_torch/csrc/count_histo.cu",
+        # the host np.bincount of the JAX package's Spectrum.histo, not a
+        # Pallas kernel
+        "replaces": "findkmer_tpu/api.py:85",
+        # the count paths of phases 6, 7 and 7b launch none (they check)
+        **launches_of(C3, 0),
+        "max_abs_err": c3_err,
+        "ms": c3_cell["kernel"]["ms"],
+        "plain_ms": c3_cell["plain"]["ms"],
+        **bound_of(c3_cell),
+        "library_ms": None,
+        "plain": "count_histo_kernel.count_histo_reference: a mask of the "
+                 "nonzero counts, clamp and torch.bincount",
+        "shape": c3_cell["shape"],
+        "max_count": c3_cell["max_count"],
+        "by_case": {name: {"counts": t["counts"],
+                           "max_count": t["max_count"], "bins": t["bins"],
+                           "ms": t["kernel"]["ms"],
+                           "plain_ms": t["plain"]["ms"], **bound_of(t),
+                           "share_of_bound": t["share_of_bound"]}
+                    for name, t in c3_timing.items()},
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

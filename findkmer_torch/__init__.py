@@ -33,9 +33,10 @@ first use: the window-code histogram K1 (`csrc/histogram.cu`, wrapped by
 dense step (`csrc/window_histogram.cu`,
 `ops/cuda/window_histogram_kernel.py`), the sparse path's window
 extraction C1 (`csrc/window_codes.cu`, `ops/cuda/window_codes_kernel.py`),
-the store's row sort K3 (`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`)
-and its run-length encoding C2 (`csrc/rle.cu`,
-`ops/cuda/rle_kernel.py`).  The sources ship in
+the store's row sort K3 (`csrc/rowsort.cu`, `ops/cuda/rowsort_kernel.py`),
+its run-length encoding C2 (`csrc/rle.cu`, `ops/cuda/rle_kernel.py`) and
+`histo`'s count-of-counts C3 (`csrc/count_histo.cu`,
+`ops/cuda/count_histo_kernel.py`).  The sources ship in
 the package, so an installed tree builds them too.
 
 Importing the package stays cheap: no torch import here.

@@ -1025,7 +1025,9 @@ def cmd_histo(args, **_kernels) -> int:
 
 
 def _histogram(args):
-    """`histo`'s (count-of-counts array, separator)."""
+    """`histo`'s (count-of-counts array, separator): of spectrum files on
+    the host, or of a recount (binned on the device where
+    `pipeline.histo_on_device` holds, else on the host)."""
     if args.from_spectrum:
         # histogram an existing spectrum file — no recount, no device
         from findkmer_torch import spectra
@@ -1037,11 +1039,16 @@ def _histogram(args):
             )
             h = hi if h is None else h + hi
         return h, args.sep
-    from findkmer_torch import api
+    from findkmer_torch import api, pipeline
+    from findkmer_torch.device import resolve_device
 
     cfg = _cfg_from_args(args)
+    device = resolve_device(args.device)
+    if pipeline.histo_on_device(cfg, device, args.max_count):
+        return pipeline.count_file(list(args.input), cfg, device,
+                                   histo_max=args.max_count), cfg.sep
     spec = api.count(args.input, cfg.k, canonical=cfg.canonical,
-                     config=cfg, device=args.device)
+                     config=cfg, device=device)
     return spec.histo(max_count=args.max_count), cfg.sep
 
 

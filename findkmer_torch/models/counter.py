@@ -63,6 +63,11 @@ package's log-structured store.
     `entries_pulled`: a sparse chunk's length; the dense table's 4^k
     bins in `finalize`, its nonzero bins in `finalize_chunks` (each
     slice's compaction and pull the span `finalize/table`).
+  * histogram (`finalize(state, histo_max=M)`, `histo`'s recount): the
+    count-of-counts is binned on the device by C3
+    (`ops/cuda/count_histo_kernel.py`) from the dense table or the
+    globally compacted store's counts, and only its M + 1 bins are
+    pulled (the span `finalize/histo`, the counter `histo_on_card`).
 Codes are one integer (int32 for k <= 15, int64 above; `ops/window.py`).
 Counting over several devices is `parallel/dist.py`'s, behind the same
 interface (`make_counter`).
@@ -87,6 +92,7 @@ from findkmer_torch.ops import compaction
 from findkmer_torch.ops import histogram as hist_ops
 from findkmer_torch.ops import sparse as sparse_ops
 from findkmer_torch.ops import window as window_ops
+from findkmer_torch.ops.cuda.count_histo_kernel import count_histo_cuda
 from findkmer_torch.ops.cuda.histogram_kernel import MAX_K, add_counts_cuda
 from findkmer_torch.ops.cuda.window_codes_kernel import (
     window_codes_packed_cuda,
@@ -165,6 +171,14 @@ def ingest(out: torch.Tensor, batch, k: int, canonical: bool, R: int):
                           window_ops.sentinel(codes.dtype)).reshape(-1))
 
 
+def counter_devices(cfg: Config, device: torch.device) -> int:
+    """How many devices `make_counter`'s counter spans: cfg.devices, or
+    for 0 every visible card (one on the CPU)."""
+    if cfg.devices:
+        return cfg.devices
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
 def make_counter(cfg: Config, device: torch.device, row_sort: str = "auto",
                  dense_kernel: str = "fused"):
     """The counter for cfg.devices on `device`'s kind: the single-device
@@ -177,9 +191,7 @@ def make_counter(cfg: Config, device: torch.device, row_sort: str = "auto",
 
     ensure_shared_alloc()  # before this run's big host buffers exist
     device = torch.device(device)
-    n = cfg.devices
-    if n == 0:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = counter_devices(cfg, device)
     if n <= 1:
         return KmerCounter(cfg, device, row_sort=row_sort,
                            dense_kernel=dense_kernel)
@@ -462,13 +474,19 @@ class KmerCounter(RowStoreMixin):
             return sparse_ops.store_to_host_2d(codes, cnt)
 
     # ------------------------------------------------------------------
-    def finalize(self, state, timers=None):
+    def finalize(self, state, timers=None, histo_max=None):
         """The spectrum on the host: dense -> np counts (4^k,); sparse ->
         (codes uint64, counts int64), sorted and distinct.
 
         The sparse default gathers `finalize_chunks` (the ordered
         finalize, or the spill merge).  FINDKMER_ORDERED_FINALIZE=0 takes
-        the heap-merge finalize of an unspilled store instead."""
+        the heap-merge finalize of an unspilled store instead.
+
+        With histo_max (an int >= 1) the result is `histo`'s
+        count-of-counts instead, binned on the device
+        (`_finalize_histo`)."""
+        if histo_max is not None:
+            return self._finalize_histo(state, histo_max, phases(timers))
         if self.mode == "direct":
             # the tracer's alone: `stream --stats json` keeps its phases
             with prof.span("finalize/table"):
@@ -491,6 +509,33 @@ class KmerCounter(RowStoreMixin):
                 return np.empty(0, np.uint64), np.empty(0, np.int64)
             return (np.concatenate([c for c, _ in parts]),
                     np.concatenate([n for _, n in parts]))
+
+    def _finalize_histo(self, state, max_count, ph):
+        """The count-of-counts of the spectrum, (max_count + 1,) int64:
+        h[m] the distinct k-mers seen m times, clipped to max_count, h[0]
+        = 0.  C3 (`ops/cuda/count_histo_kernel`) bins the counts on the
+        counter's device, and only its bins are pulled: the dense table's
+        4^k bins as they stand, or a sparse store's counts after the
+        finalize's compaction and `global_compact` (its codes dropped).
+        No spectrum entry crosses to the host, so `entries_pulled` is not
+        counted; `histo_on_card` counts the entries binned.  A counter
+        that spills (cfg.spill_dir) has no device spectrum to bin."""
+        if self.cfg.spill_dir:
+            raise ValueError("the count-of-counts on the device needs an "
+                             "unspilled store; histogram the spectrum "
+                             "instead (api.Spectrum.histo)")
+        if self.mode == "direct":
+            counts = state.counts
+        else:
+            state, _ = self._compacted(state, ph)
+            with ph("finalize/global_sort"):
+                counts = sparse_ops.global_compact(*state.store)[1]
+        with ph("finalize/histo"):
+            bins = count_histo_cuda(counts, max_count)
+            prof.count("histo_on_card", counts.numel())
+            bins = bins.cpu()
+        with ph("finalize/assemble"):
+            return bins.numpy()
 
     def _compacted(self, state, ph):
         """(state, per-row distinct counts) with the raw buffer folded in

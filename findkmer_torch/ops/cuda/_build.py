@@ -182,6 +182,12 @@ def load() -> ctypes.CDLL:
     lib.fk_rle_rows_status_words.restype = i64
     lib.fk_rle_rows_tile.argtypes = []
     lib.fk_rle_rows_tile.restype = i64
+    lib.fk_count_histo.argtypes = [
+        ptr, i64, ctypes.c_int, i64, ptr, ctypes.c_int, ptr,
+    ]
+    lib.fk_count_histo.restype = ctypes.c_int
+    lib.fk_count_histo_shared_max.argtypes = [ctypes.POINTER(i64)]
+    lib.fk_count_histo_shared_max.restype = ctypes.c_int
     lib.fk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fk_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,6 +19,8 @@ batchers while pinned host buffers and a side CUDA stream keep the next
 batches' H2D copies in flight during the current step.
 `per_record_spectra` counts each record of an input on its own (count
 --per-record), through the same batchers and one reused stager.
+`count_file(..., histo_max=)` is `histo`'s recount: its count-of-counts,
+binned on the device where `histo_on_device` holds.
 
 Its spans (`utils.prof`): `batcher`, each batch the producer thread draws
 (not its wait for room in the queue); `host_batches/stage`, a batch's
@@ -740,18 +742,36 @@ def count_file(
     timers=None,
     row_sort: str = "auto",
     dense_kernel: str = "fused",
+    histo_max: Optional[int] = None,
 ):
     """Single-host end-to-end count of one file, or of a list of files
     counted as one input, on `device`.
 
     Returns the finalized spectrum: dense np counts, or sparse (codes
     uint64, counts int64); formatting lives in findkmer_torch/output.py.
-    The span "finalize" includes the final device drain."""
+    With histo_max (where `histo_on_device` holds) it returns `histo`'s
+    count-of-counts instead, binned on the device: (histo_max + 1,)
+    int64 (`KmerCounter.finalize`).  The span "finalize" includes the
+    final device drain."""
     counter, state = run_count(path, cfg, device, stats=stats,
                                timers=timers, row_sort=row_sort,
                                dense_kernel=dense_kernel)
     with span("finalize", timers):
-        return counter.finalize(state, timers=timers)
+        if histo_max is None:  # the mesh's finalize takes no histo_max
+            return counter.finalize(state, timers=timers)
+        return counter.finalize(state, timers=timers, histo_max=histo_max)
+
+
+def histo_on_device(cfg: Config, device: torch.device,
+                    max_count: int) -> bool:
+    """Whether `histo`'s recount bins its count-of-counts on the device
+    (`count_file(..., histo_max=)`): one device's counter that does not
+    spill, and a clip of at least 1.  Else the spectrum is pulled and
+    histogrammed on the host (`api.Spectrum.histo`)."""
+    from findkmer_torch.models.counter import counter_devices
+
+    return (counter_devices(cfg, device) <= 1 and not cfg.spill_dir
+            and max_count >= 1)
 
 
 class _ChunkIterReader:

@@ -125,7 +125,7 @@ def test_wheel_ships_the_sources(installed):
                       if n.startswith("findkmer_torch/csrc/"))
         want = sorted(f"findkmer_torch/csrc/{p.name}"
                       for p in _build.sources())
-        assert csrc == want and len(want) == 7
+        assert csrc == want and len(want) == 8
         for n in want + ["findkmer_torch/_native/encode.c"]:
             assert z.read(n) == (REPO / n).read_bytes(), n
         assert "findkmer_torch/_native/__init__.py" in names

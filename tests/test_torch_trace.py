@@ -176,7 +176,7 @@ SUBS = {
               "finalize/global_sort", "finalize/d2h", "write/format",
               "write/io"},
     "histo": {"host_batches/stage", "batcher", "finalize/compact",
-              "finalize/global_sort", "finalize/d2h", "finalize/assemble",
+              "finalize/global_sort", "finalize/histo", "finalize/assemble",
               "write/format", "write/io"},
     "per_input": {"sample", "host_batches/stage", "batcher",
                   "finalize/compact", "finalize/global_sort",
@@ -215,10 +215,12 @@ def test_each_path_records_the_layers_and_their_sub_spans(cmd, ecoli,
         for s in spans:
             if s.name in LAYERS:
                 assert _inside(s, samples, "sample"), s
-    # histo formats no spectrum lines
+    # histo pulls and formats no spectrum entry: it bins them on the
+    # device
     assert {c.name for c in counts} == {
-        "raw_slots_sorted", "raw_slots_filled", "store_live", "store_slots",
-        "entries_pulled"} | ({"entries_written"} if cmd != "histo" else set())
+        "raw_slots_sorted", "raw_slots_filled", "store_live",
+        "store_slots"} | ({"histo_on_card"} if cmd == "histo" else {
+            "entries_pulled", "entries_written"})
 
 
 @pytest.mark.parametrize("cmd", sorted(SUBS))
