@@ -30,9 +30,9 @@ output bytes as the same subcommands of the JAX package's `findkmer`
 way round): `_add_common`, `_cfg_from_args` with its sparse autosize,
 `_open_out`, the input stems of --per-input and `matrix`, and the
 commands themselves are the port's own copies of that CLI's, over the
-port's `spectra.py` and `sketch.py`; the spectrum is written by
-`findkmer_torch.output` (`write_spectrum` and, for sparse tables,
-`write_spectrum_streaming` over the counter's chunked finalize).  Any k
+port's `spectra.py` and `sketch.py`; a counted spectrum is written by
+`findkmer_torch.output.write_spectrum` over the counter's chunked
+finalize (`write_counted`, the one tail of every counting command).  Any k
 up to 31 counts; the spectrum tools also take files of longer k-mers.
 `--device` picks the torch device; asking for cuda without one is an
 error (exit 2), never a CPU run.  `bench` prints the reference's JSON
@@ -274,26 +274,6 @@ def _per_input_name(path: str, seen: dict) -> str:
     return _input_stem(path, seen) + ".tsv"
 
 
-def _use_streamed_finalize(counter) -> bool:
-    """Sparse runs, and a dense table above `Config.direct_k_max` on one
-    device, stream the write per finalize chunk (counter.finalize_chunks:
-    the ordered finalize, the spill merge, a mesh's dp_sparse k-way
-    merge, or the dense table's nonzero bins).
-    FINDKMER_ORDERED_FINALIZE=0 turns this off too, so that the heap-merge
-    finalize is reachable from the CLI."""
-    if os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1":
-        return False
-    if counter.mode != "direct":
-        return True
-    # a single card's dense table past the histogram kernels' k streams
-    # its nonzero bins, compacted on the device (--zeros needs them all)
-    from findkmer_torch.models.counter import KmerCounter
-
-    cfg = counter.cfg
-    return (isinstance(counter, KmerCounter) and cfg.k > cfg.direct_k_max
-            and not cfg.zeros)
-
-
 @contextlib.contextmanager
 def _written(path):
     """The file `_open_out(path)` opens, closed at the end if it is one
@@ -310,17 +290,17 @@ def _written(path):
                 f.close()
 
 
-def emit_streamed_spectrum(counter, state, cfg, output, timers=None):
-    """Open `output` and write counter.finalize_chunks(state) to it: the
-    shared streamed-finalize tail of `count` and `stream`.  Each chunk is
+def write_counted(f, counter, state, cfg, timers=None) -> int:
+    """Write a counted state's spectrum to the open file `f`:
+    `counter.finalize_chunks` through `output.write_spectrum`, each chunk
     formatted and written while the next one's device-to-host copy is in
-    flight."""
+    flight.  The one tail of every command that counts a spectrum into a
+    file (`count`, `--per-input`, `matrix -k`, `stream`); the counter
+    decides how its chunks are made.  -> bytes written."""
     from findkmer_torch import output as output_mod
 
-    with _written(output) as f:
-        chunks = counter.finalize_chunks(state, timers=timers)
-        output_mod.write_spectrum_streaming(
-            f, _timed_chunks(chunks, timers), cfg)
+    chunks = counter.finalize_chunks(state, timers=timers)
+    return output_mod.write_spectrum(f, _timed_chunks(chunks, timers), cfg)
 
 
 def _warn_numpy_encoder(cfg) -> str:
@@ -371,17 +351,18 @@ def _count_inputs_to_files(inputs, out_paths, cfg, device, stats=None,
     """Count each input on its own on `device` into its spectrum file
     (count --per-input and matrix -k share this loop); row_sort and
     dense_kernel pick the counter's kernels, as in `cmd_count`."""
-    from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
     from findkmer_torch.utils.prof import span
 
     for path, out in zip(inputs, out_paths):
         with span("sample"):
-            spectrum = pipeline.count_file(path, cfg, device, stats=stats,
-                                           row_sort=row_sort,
-                                           dense_kernel=dense_kernel)
+            counter, state = pipeline.run_count(
+                path, cfg, device, stats=stats, row_sort=row_sort,
+                dense_kernel=dense_kernel)
             with open(out, "wb") as f, span("write"):
-                output_mod.write_spectrum(f, spectrum, cfg)
+                write_counted(f, counter, state, cfg)
+            # freed before the next sample allocates its raw buffer
+            del counter, state
 
 
 def _count_per_input(args, cfg, device, kernels: dict) -> int:
@@ -437,11 +418,9 @@ def cmd_count(args, row_sort: str = "auto",
     no flags."""
     import torch
 
-    from findkmer_torch import output as output_mod
     from findkmer_torch import pipeline
     from findkmer_torch.device import resolve_device
-    from findkmer_torch.utils.prof import (PhaseTimers, collecting,
-                                           device_trace, span)
+    from findkmer_torch.utils.prof import PhaseTimers, collecting, device_trace
 
     _set_log_level(args.log)
     cfg = _cfg_from_args(
@@ -467,15 +446,8 @@ def cmd_count(args, row_sort: str = "auto",
         # multiple inputs: one combined spectrum (records concatenated)
         counter, state = pipeline.run_count(args.input, cfg, device,
                                             stats=stats, **kernels)
-        if _use_streamed_finalize(counter):
-            emit_streamed_spectrum(counter, state, cfg, args.output)
-        else:
-            # dense, or the heap-merge finalize of a sparse table
-            with _written(args.output) as f:
-                with span("finalize"):
-                    spectrum = counter.finalize(state)
-                with span("write"):
-                    output_mod.write_spectrum(f, spectrum, cfg)
+        with _written(args.output) as f:
+            write_counted(f, counter, state, cfg)
     wall = time.time() - t0
     if args.stats == "json":
         d = stats.as_dict()

@@ -47,7 +47,11 @@ package's log-structured store.
     before.  FINDKMER_ORDERED_FINALIZE=0 takes the heap-merge finalize
     instead: the squeezed row store is pulled as it is and its G rows are
     merged on the host in C (`ops/sparse.store_to_host_2d`); same
-    spectrum, an A/B route.
+    spectrum, an A/B route, and the one place the variable is read.
+    `finalize_chunks` yields the spectrum of either engine as host
+    chunks, which every command writes (`output.write_spectrum`);
+    `finalize` gathers them (`gather`) where the spectrum is wanted in
+    hand.
   * disk spill (Config.spill_dir; `spill.py`): a compaction that finds
     the exact distinct count past sparse_capacity writes the store to a
     sorted run file and restarts it from the raw buffer alone; finalize
@@ -57,12 +61,13 @@ package's log-structured store.
     sorts to the counter `raw_slots_sorted` and the raw fill to
     `raw_slots_filled`; the front of every finalize adds the store's
     live entries (the sum of the host distinct vector it reads anyway)
-    to `store_live` and its G x cols slots to `store_slots`.  The finalize's spans are `finalize/<part>`, the
-    chunks' host copies and their concatenation `finalize/assemble`.
-    Every pull of spectrum entries to the host adds them to
-    `entries_pulled`: a sparse chunk's length; the dense table's 4^k
-    bins in `finalize`, its nonzero bins in `finalize_chunks` (each
-    slice's compaction and pull the span `finalize/table`).
+    to `store_live` and its G x cols slots to `store_slots`.  The
+    finalize's spans are `finalize/<part>`, the gather's host copies
+    `finalize/assemble`.  Every pull of spectrum entries to the host adds
+    them to `entries_pulled`: a sparse chunk's length; the dense table's
+    4^k bins in `finalize`, its nonzero bins (with cfg.zeros every bin)
+    in `finalize_chunks` (each slice's compaction and pull the span
+    `finalize/table`).
   * histogram (`finalize(state, histo_max=M)`, `histo`'s recount): the
     count-of-counts is binned on the device by C3
     (`ops/cuda/count_histo_kernel.py`) from the dense table or the
@@ -476,11 +481,8 @@ class KmerCounter(RowStoreMixin):
     # ------------------------------------------------------------------
     def finalize(self, state, timers=None, histo_max=None):
         """The spectrum on the host: dense -> np counts (4^k,); sparse ->
-        (codes uint64, counts int64), sorted and distinct.
-
-        The sparse default gathers `finalize_chunks` (the ordered
-        finalize, or the spill merge).  FINDKMER_ORDERED_FINALIZE=0 takes
-        the heap-merge finalize of an unspilled store instead.
+        (codes uint64, counts int64), sorted and distinct: one `gather`
+        of the chunks `finalize_chunks` yields.
 
         With histo_max (an int >= 1) the result is `histo`'s
         count-of-counts instead, binned on the device
@@ -494,21 +496,7 @@ class KmerCounter(RowStoreMixin):
             prof.count("entries_pulled", counts.size)
             return counts
         ph = phases(timers)
-        # compact FIRST: the finalize's own compaction may write the first
-        # spill run, and only then is `_spill_n` the route's truth
-        state, d = self._compacted(state, ph)
-        if (not self._spill_n
-                and os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1"):
-            return self._finalize_heap_merge(state, d, ph)
-        parts = []
-        for c, n in self._sorted_chunks(state, ph):
-            with ph("finalize/assemble"):
-                parts.append((c.copy(), n.copy()))
-        with ph("finalize/assemble"):
-            if not parts:
-                return np.empty(0, np.uint64), np.empty(0, np.int64)
-            return (np.concatenate([c for c, _ in parts]),
-                    np.concatenate([n for _, n in parts]))
+        return gather(*self._store_chunks(state, ph), ph=ph)
 
     def _finalize_histo(self, state, max_count, ph):
         """The count-of-counts of the spectrum, (max_count + 1,) int64:
@@ -562,21 +550,27 @@ class KmerCounter(RowStoreMixin):
                     (store[0], store[1].clone()), Ldc, self._plain_sort)
         return self._store_to_host(store, ph)
 
-    def _sorted_chunks(self, state, ph):
-        """Chunks of a compacted state: the spill merge when runs were
-        written, else the ordered finalize's chunked pull."""
+    def _store_chunks(self, state, ph):
+        """(host chunks, their entry count or None) of a sparse state,
+        compacted first: the spill merge when runs were written, the
+        heap-merge finalize's one chunk under FINDKMER_ORDERED_FINALIZE=0,
+        else the ordered finalize's chunked pull.  The compaction comes
+        before the choice: it may write the first spill run."""
+        state, d = self._compacted(state, ph)
         if self._spill_n:
-            yield from self._merged_spill_chunks(state, ph)
-            return
+            return self._merged_spill_chunks(state, ph), None
+        if os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1":
+            return [self._finalize_heap_merge(state, d, ph)], None
         with ph("finalize/global_sort"):
             codes, counts = sparse_ops.global_compact(*state.store)
-        yield from _pull_chunks(codes, counts, ph)
+        return _pull_chunks(codes, counts, ph), codes.shape[0]
 
     def finalize_chunks(self, state, timers=None):
         """The spectrum as host chunks (codes uint64, counts int64) in
-        code order, zero counts left out; a sparse store's concatenate
-        to finalize(state).  A dense table is compacted to its nonzero
-        bins on its device, slice by slice (`_table_chunks`).
+        code order, what `output.write_spectrum` writes: a sparse store's
+        (`_store_chunks`), or a dense table's nonzero bins, compacted on
+        its device slice by slice (`_table_chunks`), or with cfg.zeros
+        every bin.
 
         A chunk's arrays may live in a reused pinned buffer: they are
         valid until the next chunk is requested (copy them to keep them).
@@ -584,11 +578,10 @@ class KmerCounter(RowStoreMixin):
         chunk ahead, so it runs while the caller formats the chunk
         before."""
         if self.mode == "direct":
-            yield from _table_chunks(state.counts)
+            yield from _table_chunks(state.counts, self.cfg.zeros)
             return
-        ph = phases(timers)
-        state, _ = self._compacted(state, ph)
-        yield from self._sorted_chunks(state, ph)
+        _refuse_sparse_zeros(self.cfg)
+        yield from self._store_chunks(state, phases(timers))[0]
 
     # ------------------------------------------------------------------
     def table_state(self, state):
@@ -668,17 +661,40 @@ class KmerCounter(RowStoreMixin):
         return fn, (rows,)
 
 
-def _pull_owned(codes: torch.Tensor, counts: torch.Tensor):
-    """A device spectrum on the host as arrays of its own (codes uint64,
-    counts int64), gathered from `_pull_chunks`."""
-    out_c = np.empty(codes.shape[0], np.uint64)
-    out_n = np.empty(codes.shape[0], np.int64)
+def gather(chunks, entries: Optional[int] = None, ph=prof.span):
+    """Host (codes, counts) chunks in code order as one spectrum of its
+    own (codes uint64, counts int64), each entry copied once into arrays
+    allocated up front: the gather of every finalize.  `entries`, where
+    the count is known before the pull, lets the chunks live in reused
+    buffers (`_pull_chunks`); without it the chunks must be arrays of
+    their own (the spill merge's blocks, the heap merge's spectrum), and
+    are counted first.  The copies are `finalize/assemble` spans."""
+    if entries is None:
+        chunks = list(chunks)
+        entries = sum(c.size for c, _ in chunks)
+    out_c = np.empty(entries, np.uint64)
+    out_n = np.empty(entries, np.int64)
     at = 0
-    for c, n in _pull_chunks(codes, counts, phases(None)):
-        out_c[at : at + c.size] = c
-        out_n[at : at + c.size] = n
+    for c, n in chunks:
+        with ph("finalize/assemble"):
+            out_c[at : at + c.size] = c
+            out_n[at : at + c.size] = n
         at += c.size
     return out_c, out_n
+
+
+def _pull_owned(codes: torch.Tensor, counts: torch.Tensor):
+    """A device spectrum on the host as arrays of its own (codes uint64,
+    counts int64): its `_pull_chunks`, gathered."""
+    return gather(_pull_chunks(codes, counts, prof.span), codes.shape[0])
+
+
+def _refuse_sparse_zeros(cfg: Config) -> None:
+    """Zero-count k-mers are enumerated from a dense table alone."""
+    if cfg.zeros:
+        raise ValueError(
+            "zeros output is only supported for direct (dense) tables"
+        )
 
 
 def _chunk_spans(n: int):
@@ -690,27 +706,36 @@ def _chunk_spans(n: int):
     return [(a, min(a + step, n)) for a in range(0, n, step)]
 
 
-def _table_chunks(table: torch.Tensor):
-    """Host (codes uint64, counts int64) chunks of a dense table's
-    nonzero bins in code order.  Each slice of TABLE_SLICE bins is
-    compacted on the table's device and only its nonzero bins are
-    pulled; the compaction and the pull are `finalize/table` spans (the
-    tracer's alone: `stream --stats json` keeps its phases)."""
+def _table_chunks(table: torch.Tensor, zeros: bool = False,
+                  offset: int = 0):
+    """Host (codes uint64, counts int64) chunks of a dense table, or of a
+    mesh's shard of one whose first bin is code `offset`, in code order:
+    its nonzero bins, or with `zeros` every bin.  Each slice of
+    TABLE_SLICE bins is compacted on the table's device and only what it
+    keeps is pulled; the compaction and the pull are `finalize/table`
+    spans (the tracer's alone: `stream --stats json` keeps its
+    phases)."""
     def table_span(_name):
         return prof.span("finalize/table")
 
     for a in range(0, table.numel(), TABLE_SLICE):
         part = table[a:a + TABLE_SLICE]
         with table_span(None):
-            idx = part.nonzero().squeeze(1)
-            codes, counts = idx + a, part[idx]
+            if zeros:
+                codes = torch.arange(offset + a, offset + a + part.numel(),
+                                     device=part.device)
+                counts = part
+            else:
+                idx = part.nonzero().squeeze(1)
+                codes, counts = idx + (offset + a), part[idx]
         yield from _pull_chunks(codes, counts, table_span)
 
 
 def _pull_chunks(codes: torch.Tensor, counts: torch.Tensor, ph):
     """Yield host (codes uint64, counts int64) chunks of a device
     spectrum.  CUDA: two pinned buffer pairs alternate; chunk i+1's copy
-    is issued before chunk i is handed to the caller."""
+    is issued before chunk i is handed to the caller, on the spectrum's
+    card."""
     spans = _chunk_spans(codes.shape[0])
     prof.count("entries_pulled", codes.shape[0])
     if codes.device.type != "cuda":
@@ -733,9 +758,12 @@ def _pull_chunks(codes: torch.Tensor, counts: torch.Tensor, ph):
     def issue(i):
         a, b = spans[i]
         hc, hn, ev = bufs[i % len(bufs)]
-        hc[: b - a].copy_(codes[a:b], non_blocking=True)
-        hn[: b - a].copy_(counts[a:b], non_blocking=True)
-        ev.record()
+        # the copies and their event on the spectrum's own card (a mesh
+        # shard's need not be the current one)
+        with torch.cuda.device(codes.device):
+            hc[: b - a].copy_(codes[a:b], non_blocking=True)
+            hn[: b - a].copy_(counts[a:b], non_blocking=True)
+            ev.record()
 
     with ph("finalize/d2h"):
         issue(0)

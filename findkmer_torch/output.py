@@ -12,11 +12,16 @@ chunk in one pass.  Spans (`utils.prof`): `write/threshold` is each
 application of the count thresholds, `write/format` each chunk's
 formatting, `write/io` each write of formatted bytes; the counter
 `entries_written` adds the lines each chunk formats.
+
+One loop writes every spectrum (`write_spectrum`): a finalized one is cut
+into host chunks, a counter's `finalize_chunks` arrives in them, and each
+chunk is thresholded, formatted and written in turn.
 """
 
 from __future__ import annotations
 
-from typing import IO, Iterator
+from collections.abc import Iterator
+from typing import IO
 
 import numpy as np
 
@@ -62,14 +67,12 @@ def _format_chunk(
     count("entries_written", counts.shape[0])
     with span("write/format"):
         if not counts_only and len(sep) == 1:
-            # one-pass C formatter (~10x the numpy string assembly)
-            try:
-                from findkmer_torch.io import native
+            # one-pass C formatter (~10x the numpy string assembly); its
+            # faults raise, never fall back unseen to the slow path
+            from findkmer_torch.io import native
 
-                if native.available():
-                    return native.format_spectrum(codes, counts, k, sep)
-            except Exception:
-                pass
+            if native.available():
+                return native.format_spectrum(codes, counts, k, sep)
         counts_s = counts.astype("S")
         if counts_only:
             return b"\n".join(counts_s.tolist()) + b"\n"
@@ -78,26 +81,65 @@ def _format_chunk(
         return b"\n".join(lines.tolist()) + b"\n"
 
 
-def _apply_count_thresholds(spectrum, cfg: Config):
-    """KMC-style -ci/-cx output filter (Config.min_count / max_count).
-
-    Sparse spectra drop filtered entries; dense spectra zero them (so
-    they fall out of the nonzero scan; with zeros=True they print as
-    any other zero-count k-mer).  Counting itself stays exact."""
+def _apply_count_thresholds(chunk, cfg: Config):
+    """One (codes, counts) chunk's entries as they are written: KMC-style
+    -ci/-cx (Config.min_count / max_count) drops the entries it filters,
+    or with cfg.zeros sets their counts to 0 (they print as any other
+    zero-count k-mer).  With zeros and canonical only the canonical code
+    space is enumerated: a canonical table folds every count onto
+    min(code, revcomp), so its other slots are structural, not observed
+    zeros.  Counting itself stays exact."""
+    codes, counts = chunk
+    if cfg.zeros and cfg.canonical:
+        m = codes <= revcomp_codes_u64(codes, cfg.k)
+        codes, counts = codes[m], counts[m]
     lo, hi = cfg.min_count, cfg.max_count
     if lo <= 1 and hi == 0:
-        return spectrum
-    if isinstance(spectrum, tuple):
-        codes, counts = spectrum
-        m = counts >= lo
-        if hi:
-            m &= counts <= hi
-        return codes[m], counts[m]
-    counts = np.asarray(spectrum)
+        return codes, counts
     m = counts >= lo
     if hi:
         m &= counts <= hi
-    return np.where(m, counts, 0)
+    if cfg.zeros:
+        return codes, np.where(m, counts, 0)
+    return codes[m], counts[m]
+
+
+def _whole_chunks(spectrum, cfg: Config, chunk: int = 1 << 20):
+    """A finalized spectrum as (codes uint64, counts) host chunks in code
+    order: sparse (codes, counts) cut as it is; a dense (4^k,) table's
+    nonzero bins, or with cfg.zeros every bin."""
+    if isinstance(spectrum, tuple):
+        if cfg.zeros:
+            raise ValueError(
+                "zeros output is only supported for direct (dense) tables"
+            )
+        codes, counts = spectrum
+        for s in range(0, codes.shape[0], chunk):
+            yield codes[s : s + chunk], counts[s : s + chunk]
+        return
+    counts = np.asarray(spectrum)
+    if cfg.zeros:
+        for s in range(0, counts.shape[0], chunk):
+            e = min(s + chunk, counts.shape[0])
+            yield np.arange(s, e, dtype=np.uint64), counts[s:e]
+        return
+    (nz,) = np.nonzero(counts)
+    for s in range(0, nz.shape[0], chunk):
+        idx = nz[s : s + chunk]
+        yield idx.astype(np.uint64), counts[idx]
+
+
+def _blocks(chunks, cfg: Config, block: int = 1 << 20) -> Iterator[bytes]:
+    """Formatted output blocks of host (codes, counts) chunks: each
+    chunk thresholded (`write/threshold`), then formatted `block` entries
+    at a time."""
+    sep = cfg.sep.encode()
+    for chunk in chunks:
+        with span("write/threshold"):
+            codes, counts = _apply_count_thresholds(chunk, cfg)
+        for s in range(0, codes.shape[0], block):
+            yield _format_chunk(codes[s : s + block], counts[s : s + block],
+                                cfg.k, sep, cfg.out_counts_only)
 
 
 def spectrum_chunks(
@@ -107,86 +149,21 @@ def spectrum_chunks(
 
     spectrum: dense np counts (4^k,) or sparse (codes uint64, counts).
     """
-    sep = cfg.sep.encode()
-    k = cfg.k
-    with span("write/threshold"):
-        spectrum = _apply_count_thresholds(spectrum, cfg)
-    if isinstance(spectrum, tuple):
-        codes, counts = spectrum
-        if cfg.zeros:
-            raise ValueError(
-                "zeros output is only supported for direct (dense) tables"
-            )
-        for s in range(0, codes.shape[0], chunk):
-            e = min(s + chunk, codes.shape[0])
-            yield _format_chunk(
-                codes[s:e], counts[s:e], k, sep, cfg.out_counts_only
-            )
-        return
-
-    counts = np.asarray(spectrum)
-    if cfg.zeros:
-        for s in range(0, counts.shape[0], chunk):
-            e = min(s + chunk, counts.shape[0])
-            codes = np.arange(s, e, dtype=np.uint64)
-            cnts = counts[s:e]
-            if cfg.canonical:
-                # canonical tables fold every count onto min(code,
-                # revcomp): the zero interleave enumerates only that
-                # canonical code space (non-canonical slots are
-                # structural, not observed-zero)
-                m = codes <= revcomp_codes_u64(codes, k)
-                codes, cnts = codes[m], cnts[m]
-            yield _format_chunk(
-                codes,
-                cnts,
-                k,
-                sep,
-                cfg.out_counts_only,
-            )
-    else:
-        (nz,) = np.nonzero(counts)
-        for s in range(0, nz.shape[0], chunk):
-            e = min(s + chunk, nz.shape[0])
-            idx = nz[s:e]
-            yield _format_chunk(
-                idx.astype(np.uint64), counts[idx], k, sep,
-                cfg.out_counts_only,
-            )
-
-
-def write_spectrum_streaming(f: IO[bytes], chunk_iter, cfg: Config) -> int:
-    """Write a sparse spectrum from an iterator of (codes, counts) host
-    chunks (globally sorted, e.g. KmerCounter.finalize_chunks).
-
-    Each chunk is formatted and written while later chunks' D2H
-    transfers are still in flight — the write tail overlaps the pull
-    instead of waiting for the whole spectrum.  Returns bytes written."""
-    if cfg.zeros:
-        raise ValueError(
-            "zeros output is only supported for direct (dense) tables"
-        )
-    sep = cfg.sep.encode()
-    n = 0
-    block = 1 << 20
-    for chunk in chunk_iter:
-        with span("write/threshold"):
-            codes, counts = _apply_count_thresholds(chunk, cfg)
-        for s in range(0, codes.shape[0], block):
-            e = min(s + block, codes.shape[0])
-            b = _format_chunk(
-                codes[s:e], counts[s:e], cfg.k, sep, cfg.out_counts_only
-            )
-            with span("write/io"):
-                f.write(b)
-            n += len(b)
-    return n
+    return _blocks(_whole_chunks(spectrum, cfg, chunk), cfg, chunk)
 
 
 def write_spectrum(f: IO[bytes], spectrum, cfg: Config) -> int:
-    """Write the full spectrum; returns bytes written."""
+    """Write a spectrum; returns bytes written.
+
+    spectrum: a finalized one (dense np counts (4^k,) or sparse (codes
+    uint64, counts)), or an iterator of host (codes uint64, counts)
+    chunks in code order, such as a counter's `finalize_chunks`: each
+    chunk is formatted and written before the next is drawn, so the
+    write overlaps the pull of the chunks after it."""
+    if not isinstance(spectrum, Iterator):
+        spectrum = _whole_chunks(spectrum, cfg)
     n = 0
-    for block in spectrum_chunks(spectrum, cfg):
+    for block in _blocks(spectrum, cfg):
         with span("write/io"):
             f.write(block)
         n += len(block)

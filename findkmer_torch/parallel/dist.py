@@ -607,8 +607,9 @@ class DistributedCounter(RowStoreMixin):
 
     def finalize(self, state, timers=None):
         """Mesh state -> the host spectrum (dense np (4^k,) counts, or
-        sparse (codes uint64, counts int64)).  `timers` gets the same
-        finalize phases as the single-device engine's."""
+        sparse (codes uint64, counts int64): one `gather` of the chunks
+        `finalize_chunks` yields).  `timers` gets the same finalize
+        phases as the single-device engine's."""
         ph = phases(timers)
         if self.merge == "psum":
             with ph("finalize/merge"):
@@ -621,24 +622,25 @@ class DistributedCounter(RowStoreMixin):
             self._raise_if_overflowed(overflow)
             with ph("finalize/merge"):
                 return _joined_on_host(shards)
+        return counter_mod.gather(*self._store_chunks(state, ph), ph=ph)
+
+    def _store_chunks(self, state, ph):
+        """(sorted distinct host chunks, None: their count is not known
+        before the pull) of the dp_sparse stores, compacted first: the
+        streaming k-way merge of the disk runs (when any were written)
+        and the per-shard runs (`spill.iter_merged`), or the heap-merge
+        finalize's one chunk under FINDKMER_ORDERED_FINALIZE=0.  Every
+        chunk is an array of its own."""
         with ph("finalize/compact"):
             st = self._compact_sparse(state)
             st, d = self._ensure_capacity(st)
         if self._spill_n:
-            # merge the disk runs with the residual per-shard runs in a
-            # streaming k-way block merge (spill.iter_merged)
-            with ph("finalize/merge"):
-                parts = list(self._merged_spill_chunks(st, d))
-                if not parts:
-                    return np.empty(0, np.uint64), np.empty(0, np.int64)
-                return (np.concatenate([c for c, _ in parts]),
-                        np.concatenate([n for _, n in parts]))
+            return self._merged_spill_chunks(st, d), None
         if os.environ.get("FINDKMER_ORDERED_FINALIZE", "1") != "1":
-            return self._finalize_heap_merge(st, d, ph)
+            return [self._finalize_heap_merge(st, d, ph)], None
         with ph("finalize/d2h"):
             runs = [(c, n) for _, c, n in self._shard_runs(st.store, d)]
-        with ph("finalize/merge"):
-            return sparse_ops.merge_host_runs(runs)
+        return spill.iter_merged(runs), None
 
     def _finalize_heap_merge(self, st: DpSparseState, d, ph):
         """The heap-merge finalize (FINDKMER_ORDERED_FINALIZE=0): every
@@ -678,21 +680,29 @@ class DistributedCounter(RowStoreMixin):
         spill.remove_runs(self.cfg.spill_dir)  # consumed; free the disk
 
     def finalize_chunks(self, state, timers=None):
-        """Streaming sparse finalize: host (codes uint64, counts int64)
-        chunks in globally sorted distinct order, concatenating to
-        exactly finalize(state)'s output."""
-        if self.merge != "dp_sparse":
-            raise ValueError("finalize_chunks is for sparse tables")
-        ph = phases(timers)
-        with ph("finalize/compact"):
-            st = self._compact_sparse(state)
-            st, d = self._ensure_capacity(st)
-        if self._spill_n:
-            yield from self._merged_spill_chunks(st, d)
+        """The spectrum as host (codes uint64, counts int64) chunks in
+        code order, what `output.write_spectrum` writes: the dp_sparse
+        stores' (`_store_chunks`); a dense merge's table, the partials
+        summed (psum) or its shards, each from its own code offset
+        (psum_scatter, all_to_all), through `models/counter.
+        _table_chunks`: the nonzero bins, or with cfg.zeros every bin."""
+        cfg = self.cfg
+        if self.merge == "psum":
+            yield from counter_mod._table_chunks(self._sum_partials(state),
+                                                 cfg.zeros)
             return
-        with ph("finalize/d2h"):
-            runs = [(c, n) for _, c, n in self._shard_runs(st.store, d)]
-        yield from spill.iter_merged(runs)
+        if self.merge in ("psum_scatter", "all_to_all"):
+            if self.merge == "psum_scatter":
+                shards = self._scatter_partials(state)
+            else:
+                shards, overflow = state
+                self._raise_if_overflowed(overflow)
+            for j, shard in enumerate(shards):
+                yield from counter_mod._table_chunks(
+                    shard, cfg.zeros, offset=j * shard.numel())
+            return
+        counter_mod._refuse_sparse_zeros(cfg)
+        yield from self._store_chunks(state, phases(timers))[0]
 
     # ------------------------------------------------------------------
     # checkpoint / resume (utils/checkpoint.py via streaming.py)

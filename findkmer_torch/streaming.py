@@ -93,8 +93,8 @@ def _stream_state(
     timers=None,
 ):
     """The streaming loop up to (but not including) finalize: returns
-    (counter, state), so that callers choose between finalize() and the
-    streamed finalize_chunks() write path.  `timers`
+    (counter, state), for `finalize` (the API, the collective merge) or
+    the CLI's streamed write (`cli.write_counted`).  `timers`
     (utils.prof.PhaseTimers) gets the phases of `pipeline.run_count` and
     each checkpoint's (`_save`)."""
     from findkmer_torch.models.counter import make_counter
@@ -278,12 +278,7 @@ def run_stream(args, row_sort: str = "auto",
 def _run_stream(args, cfg, num_processes: int, process_id: int,
                 row_sort: str, dense_kernel: str) -> int:
     from findkmer_torch import output as output_mod
-    from findkmer_torch.cli import (
-        _open_out,
-        _use_streamed_finalize,
-        _warn_numpy_encoder,
-        emit_streamed_spectrum,
-    )
+    from findkmer_torch.cli import _warn_numpy_encoder, _written, write_counted
     from findkmer_torch.device import resolve_device
     from findkmer_torch.utils.prof import device_trace
 
@@ -309,33 +304,24 @@ def _run_stream(args, cfg, num_processes: int, process_id: int,
             timers=timers,
         )
         ph = phases(timers)
-        collective = num_processes > 1 and multihost.group_active()
-        if not collective and _use_streamed_finalize(counter):
-            # sparse: format and write each finalize chunk while the
-            # next one's device-to-host copy is in flight
-            emit_streamed_spectrum(counter, state, cfg, args.output,
-                                   timers=timers)
+        if not (num_processes > 1 and multihost.group_active()):
+            with _written(args.output) as f:
+                write_counted(f, counter, state, cfg, timers)
         else:
             with ph("finalize"):
                 spectrum = counter.finalize(state, timers=timers)
-            if collective:
-                log.info("collective merge of %d per-host partials",
-                         num_processes)
-                with ph("collective_merge"):
-                    spectrum = multihost.allgather_spectrum(spectrum)
-            if collective and process_id != 0:
+            log.info("collective merge of %d per-host partials",
+                     num_processes)
+            with ph("collective_merge"):
+                spectrum = multihost.allgather_spectrum(spectrum)
+            if process_id != 0:
                 # every process holds the full spectrum now; process 0
                 # alone writes it, so the file is written exactly once
                 log.info("process %d: spectrum emitted by process 0",
                          process_id)
             else:
-                f, close = _open_out(args.output)
-                try:
-                    with ph("write"):
-                        output_mod.write_spectrum(f, spectrum, cfg)
-                finally:
-                    if close:
-                        f.close()
+                with _written(args.output) as f, ph("write"):
+                    output_mod.write_spectrum(f, spectrum, cfg)
     wall = time.time() - t0
     if args.stats == "json":
         d = stats.as_dict()

@@ -188,19 +188,31 @@ def test_dp_sparse_heap_merge_finalize(text, n, monkeypatch):
 
 
 @pytest.mark.parametrize("n", [2, 8])
-def test_dp_sparse_finalize_chunks(text, n):
+@pytest.mark.parametrize("merge", ["dp_sparse", "psum", "psum_scatter",
+                                   "all_to_all"])
+def test_dp_sparse_finalize_chunks(text, merge, n):
+    """finalize_chunks of every merge, in code order: the dp_sparse
+    spectrum of finalize, or a dense merge's nonzero bins (its partials
+    summed, or its shards from their code offsets)."""
     kw = dict(k=17, canonical=True, sparse_compact_entries=2048, **GEOM)
+    if merge != "dp_sparse":
+        kw = dict(k=8, canonical=True, merge=merge, **GEOM)
     want, _ = _torch_count(text, kw, n)
     cfg = Config(**kw)
     dc = DistributedCounter(cfg, make_mesh(n, device="cpu"))
+    assert dc.merge == merge
     state = dc.init_state()
     for rows in pipeline.batches_from_codes(
             pipeline.code_stream(FastaReader(io.BytesIO(text.encode()))),
             cfg):
         state = dc.step(state, rows)
-    parts = list(dc.finalize_chunks(state))
-    _equal((np.concatenate([c for c, _ in parts]),
-            np.concatenate([m for _, m in parts])), want)
+    parts = [(c.copy(), m.copy()) for c, m in dc.finalize_chunks(state)]
+    got = (np.concatenate([c for c, _ in parts]),
+           np.concatenate([m for _, m in parts]))
+    if merge != "dp_sparse":
+        nz = np.flatnonzero(want)
+        want = (nz.astype(np.uint64), want[nz].astype(np.int64))
+    _equal(got, want)
 
 
 def test_dp_sparse_capacity_error_and_dedup(text):

@@ -783,10 +783,24 @@ def test_output_sparse_bytes_equal(k, case):
     cuts = [0, 1, 700, 701, codes.size]
     chunks = [(codes[a:b], counts[a:b]) for a, b in zip(cuts, cuts[1:])]
     streamed = io.BytesIO()
-    n = output.write_spectrum_streaming(streamed, iter(chunks), cfg)
+    n = output.write_spectrum(streamed, iter(chunks), cfg)
     assert streamed.getvalue() == want.getvalue() and n == len(want.getvalue())
     with pytest.raises(ValueError):
         output.write_spectrum(io.BytesIO(), spectrum, cfg.replace(zeros=True))
+
+
+def test_output_formatter_fault_raises(monkeypatch):
+    """A fault of the C formatter raises: the writer does not fall back
+    to the numpy path, about ten times slower, without a word."""
+    from findkmer_torch.io import native
+
+    def broken(*_a):
+        raise RuntimeError("formatter fault")
+
+    monkeypatch.setattr(native, "available", lambda: True)
+    monkeypatch.setattr(native, "format_spectrum", broken)
+    with pytest.raises(RuntimeError, match="formatter fault"):
+        output.write_spectrum(io.BytesIO(), _sparse(21), config.Config(k=21))
 
 
 @pytest.mark.parametrize("k", [1, 5, 16, 21, 31, 32])

@@ -237,18 +237,32 @@ def test_dense_finalize_over_many_slices_and_chunks(genome, tmp_path,
         genome, 12, True, 2, 0)
 
 
-def test_zeros_and_small_k_keep_the_whole_table():
-    """--zeros writes every bin, and k <= direct_k_max keeps the dense
-    finalize of the histogram kernels' tables: neither streams."""
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k, zeros", [(10, False), (11, False), (11, True)])
+def test_zeros_and_small_k_keep_the_whole_table(genome, monkeypatch, k,
+                                                zeros, canonical):
+    """A dense table's finalize_chunks, at the histogram kernels' k and
+    above it: the nonzero bins of finalize in code order, or with --zeros
+    every bin of the table; small slices and chunks, so that there are
+    many of each."""
+    from findkmer_torch import pipeline
     from findkmer_torch.config import Config
 
-    def streams(**kw):
-        return cli._use_streamed_finalize(counter_mod.KmerCounter(
-            Config(table_mode="direct", **kw), torch.device("cpu")))
-
-    assert streams(k=11)
-    assert not streams(k=11, zeros=True)
-    assert not streams(k=10)
+    monkeypatch.setattr(counter_mod, "TABLE_SLICE", 1 << 12)
+    monkeypatch.setattr(counter_mod, "FINALIZE_CHUNK", 97)
+    cfg = Config(k=k, canonical=canonical, zeros=zeros, table_mode="direct",
+                 chunk_len=4096, batch_rows=8)
+    counter, state = pipeline.run_count(genome, cfg, torch.device("cpu"))
+    table = counter.finalize(state)
+    chunks = [(c.copy(), n.copy()) for c, n in counter.finalize_chunks(state)]
+    assert len(chunks) > 1
+    codes = np.concatenate([c for c, _ in chunks])
+    counts = np.concatenate([n for _, n in chunks])
+    assert codes.dtype == np.uint64 and counts.dtype == np.int64
+    want = (np.arange(table.size) if zeros else np.flatnonzero(table))
+    np.testing.assert_array_equal(codes, want.astype(np.uint64))
+    np.testing.assert_array_equal(counts, table[want])
+    assert zeros or counts.min() > 0
 
 
 @pytest.mark.parametrize("route", ["dense", "sparse"])

@@ -180,8 +180,7 @@ SUBS = {
               "write/format", "write/io"},
     "per_input": {"sample", "host_batches/stage", "batcher",
                   "finalize/compact", "finalize/global_sort",
-                  "finalize/d2h", "finalize/assemble", "write/format",
-                  "write/io"},
+                  "finalize/d2h", "write/format", "write/io"},
 }
 
 
@@ -210,6 +209,8 @@ def test_each_path_records_the_layers_and_their_sub_spans(cmd, ecoli,
         if "/" in s.name and s.name != "finalize/assemble":
             assert _inside(s, spans, parent), s
     if cmd == "per_input":
+        # each sample's chunks go to its file as they come: no gather
+        assert "finalize/assemble" not in names
         samples = [s for s in spans if s.name == "sample"]
         assert len(samples) == 2
         for s in spans:
